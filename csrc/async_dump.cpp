@@ -1,7 +1,7 @@
 // Asynchronous field-dump writer.
 //
 // Native runtime component: high-frequency field snapshots (flow
-// visualization dumps, checkpoint streams) must not block the TPU step
+// visualization dumps, checkpoint streams) must not block the device step
 // loop on host filesystem latency. A worker thread drains a queue of
 // buffered write jobs; submission memcpy's the (host) array once and
 // returns immediately.

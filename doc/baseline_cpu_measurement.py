@@ -4,7 +4,7 @@ The reference MPI stack (mpi4py + FFTW/mpi4py-fft + pystencils + sopht)
 cannot be provisioned in this environment (no egress, no preinstalled MPI),
 so per the BASELINE.md fallback this script measures THIS repo's own
 XLA-CPU path -- the same fused flow-past-sphere FSI step bench.py times on
-TPU -- on the host CPU at 64^3 / 128^3 / 256^3, and derives the 64-rank
+the GPU -- on the host CPU at 64^3 / 128^3 / 256^3, and derives the 64-rank
 CPU reference wall-time/step at 256^3 under an IDEAL linear-scaling
 assumption (64x speedup over one core, zero MPI overhead), which is
 strictly generous to the reference.

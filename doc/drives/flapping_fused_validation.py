@@ -4,20 +4,21 @@ Thin runner over the example's fused path (the single source of truth for
 the case setup - examples/2d/flow_past_rod.py with fused=True, dynamic
 in-trace rod substeps and the builder-derived no-clamp substep cap).
 
-Expected: tip-y amplitude ~ +-0.33 L over t* in (12, 25], ~60 s wall on
-one v5e chip.
+Expected: tip-y amplitude ~ +-0.33 L over t* in (12, 25].
 """
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/examples/2d")
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "examples", "2d"))
 
-import jax
+from sopht_mpi_tpu.utils.compile_cache import configure_compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
+configure_compile_cache()
 
 from flow_past_rod import flow_past_rod_case
 

@@ -1,7 +1,7 @@
 """Sphere-drag grid-convergence artifact (VERDICT r04 next #8).
 
 Runs the 64^3 Re=100 flow-past-sphere case to t* = 5 on the current
-backend (one TPU chip in production; ~25 s of device time) and merges it
+backend and merges it
 with the committed 128^3 / 256^3 validation runs
 (doc/validation_sphere_re100_drag_128.csv, ..._256_t5.csv - the SAME
 fused case at the same coupling constants) into
@@ -46,7 +46,7 @@ def main():
         os.path.join(REPO, "doc", "validation_sphere_re100_drag_64.csv"),
         np.c_[np.asarray(t64), np.asarray(cd64)],
         delimiter=",",
-        header="nondim time, drag coeff (64^3 fused case, one v5e chip)",
+        header="nondim time, drag coeff (64^3 fused case)",
     )
     out = {"grids": {}, "common_times": [2.0, 5.0]}
     out["grids"]["64"] = {

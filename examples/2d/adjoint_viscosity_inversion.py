@@ -5,8 +5,7 @@ vorticity field by gradient descent on the solver itself.
 This is a capability the reference architecture cannot offer: its
 pystencils/numba kernels and MPI halo choreography are not differentiable,
 while here the whole rollout - ENO3 advection, diffusion, wall
-penalisation, unbounded Poisson velocity recovery (Pallas kernels on TPU,
-each with a custom VJP) - is one pure jitted function, so
+penalisation, unbounded Poisson velocity recovery - is one pure jitted function, so
 ``jax.value_and_grad`` of a data-misfit loss w.r.t. a physical parameter
 is exact reverse-mode calculus, not finite differences.
 
@@ -14,8 +13,8 @@ Setup: the "measurement" is the vorticity field after evolving the
 analytical Lamb-Oseen initial condition (nu_true) for ``n_steps`` of the
 real solver. Starting from a wrong guess (default 2x off), Adam on
 log(nu) against ``mean((omega_sim(nu) - omega_obs)^2)`` recovers nu_true
-to ~0.1% in 70 iterations (measured 0.12% at the defaults, true float64
-on CPU; the f32 TPU path with --precision single also converges).
+to ~0.1% in 70 iterations (measured 0.12% at the defaults in float64 on
+the CPU; --precision single also converges).
 
 Run:  python examples/2d/adjoint_viscosity_inversion.py
       python examples/2d/adjoint_viscosity_inversion.py --iters 60
@@ -49,26 +48,11 @@ def adjoint_viscosity_inversion_case(
 
     if precision == "double":
         # outside pytest (whose conftest does this) x64 must be enabled
-        # explicitly, or every float64 array silently truncates to f32 -
-        # and TPUs have no f64 FFT, so double precision runs on the CPU
-        # backend (use precision="single" for an on-TPU inversion).
-        # These are PROCESS-GLOBAL JAX settings: skip them when already
-        # satisfied, and warn LOUDLY when flipping a live non-CPU process
-        # to CPU (all subsequent JAX work in the process moves with it) -
-        # callers embedding this case in a larger TPU program should pass
-        # precision="single" instead.
+        # explicitly, or every float64 array silently truncates to f32.
+        # It is a PROCESS-GLOBAL JAX setting; the run stays on whatever
+        # device the process has.
         if not jax.config.jax_enable_x64:
             jax.config.update("jax_enable_x64", True)
-        if jax.default_backend() != "cpu":
-            from sopht_mpi_tpu.utils import logger as _logger
-
-            _logger.warning(
-                "adjoint_viscosity_inversion_case(precision='double') is "
-                "switching this PROCESS's JAX platform to CPU (f64 FFTs "
-                "are CPU-only); later JAX work in this process runs on "
-                "CPU too. Use precision='single' to stay on the TPU."
-            )
-            jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import optax
 
@@ -179,6 +163,10 @@ if __name__ == "__main__":
     parser.add_argument("--nu-guess-factor", type=float, default=2.0)
     parser.add_argument("--precision", default="double")
     args = parser.parse_args()
+
+    from sopht_mpi_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     adjoint_viscosity_inversion_case(
         grid_size=(args.grid_size, args.grid_size),
         n_steps=args.n_steps,

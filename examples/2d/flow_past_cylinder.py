@@ -4,7 +4,7 @@ Counterpart of /root/reference/examples/2d_examples/FlowPastCylinderCase/
 flow_past_cylinder.py (same physics: velocity scale 1, cylinder radius
 0.03, x_range 1, coupling stiffness -5e4 / damping -20, 60 forcing points).
 
-Run (single TPU chip or CPU):
+Run (one GPU or CPU):
     python examples/2d/flow_past_cylinder.py --grid-size-x 512 --final-time 200
 
 Multi-device:
@@ -165,9 +165,7 @@ def flow_past_cylinder_fused_case(
     mesh=None,
 ):
     """Same physics, but the whole coupled loop (CFL dt + IBM + flow step)
-    runs as one on-device ``lax.scan`` (models/fsi.py) - ~1.3 ms/step on a
-    single v5e chip at 256x512, i.e. the full t*=200 shedding run in under
-    3 minutes. Validated drag history: Cd oscillates in [1.38, 1.57]
+    runs as one on-device ``lax.scan`` (models/fsi.py). Validated drag history: Cd oscillates in [1.38, 1.57]
     (doc/validation_cylinder_re200_drag.csv)."""
     import jax
     import jax.numpy as jnp
@@ -242,13 +240,17 @@ if __name__ == "__main__":
     p.add_argument(
         "--fused", action="store_true", default=True,
         help="run the whole coupled loop as one on-device lax.scan "
-        "(the default; host loops are dispatch-latency-bound on a remote TPU)",
+        "(the default; host loops are one dispatch per step)",
     )
     p.add_argument(
         "--host-loop", dest="fused", action="store_false",
         help="host-driven eager loop (CPU debugging)",
     )
     args = p.parse_args()
+
+    from sopht_mpi_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
 
     mesh = None
     if args.n_devices > 1:

@@ -314,13 +314,17 @@ if __name__ == "__main__":
     parser.add_argument(
         "--fused", action="store_true", default=True,
         help="device-scanned fused loop (the default; host loops are "
-        "dispatch-latency-bound on a remote TPU)",
+        "one dispatch per step)",
     )
     parser.add_argument(
         "--host-loop", dest="fused", action="store_false",
         help="host-driven eager loop (CPU debugging)",
     )
     args = parser.parse_args()
+
+    from sopht_mpi_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
 
     mesh = None
     if args.n_devices > 1:

@@ -358,31 +358,18 @@ if __name__ == "__main__":
     parser.add_argument(
         "--fused", action="store_true", default=True,
         help="device-scanned fused loop (the default; host loops are "
-        "dispatch-latency-bound on a remote TPU)",
+        "one dispatch per step)",
     )
     parser.add_argument(
         "--host-loop", dest="fused", action="store_false",
         help="host-driven eager loop (CPU debugging)",
     )
-    parser.add_argument(
-        "--fast", action="store_true",
-        help="fast spectral mode (sopht_mpi_tpu.enable_fast_spectral)",
-    )
-    parser.add_argument(
-        "--no-fast", dest="no_fast", action="store_true",
-        help="force the 6-pass HIGHEST spectral tier (~1e-7 solve error, "
-        "~11%% slower at 256^3); default = auto (fast tier on TPU)",
-    )
     args = parser.parse_args()
 
-    if args.no_fast:
-        import sopht_mpi_tpu
+    from sopht_mpi_tpu.utils.compile_cache import configure_compile_cache
 
-        sopht_mpi_tpu.enable_fast_spectral(False)
-    elif args.fast:
-        import sopht_mpi_tpu
+    configure_compile_cache()
 
-        sopht_mpi_tpu.enable_fast_spectral()
 
     mesh = None
     if args.n_devices > 1:

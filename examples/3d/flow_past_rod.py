@@ -196,7 +196,7 @@ def flow_past_rod_case(
         # sparse_forcing: None = auto (default since the physics-long
         # sparse-vs-dense validation: max tip deviation 2.0e-5 of rod
         # length over t*=2 at 256x64x256 reference-faithful geometry,
-        # 1.22x faster wall - doc/validation_rod_sparse_vs_dense.json);
+        # doc/validation_rod_sparse_vs_dense.json);
         # True = require it; False = dense reference-shaped path.
         from sopht_mpi_tpu.models import suggest_rod_forcing_window
 
@@ -396,7 +396,7 @@ if __name__ == "__main__":
     parser.add_argument(
         "--fused", action="store_true", default=True,
         help="device-scanned fused loop (the default; host loops are "
-        "dispatch-latency-bound on a remote TPU)",
+        "one dispatch per step)",
     )
     parser.add_argument(
         "--host-loop", dest="fused", action="store_false",
@@ -419,27 +419,12 @@ if __name__ == "__main__":
         "--dense-forcing", dest="sparse_forcing", action="store_false",
         help="force the dense reference-shaped IBM forcing path",
     )
-    parser.add_argument(
-        "--fast", action="store_true",
-        help="fast spectral mode (sopht_mpi_tpu.enable_fast_spectral): "
-        "3-pass bf16 conv matmuls + in-kernel spectral curl at ~6.6e-6 "
-        "solve error (physics validated; see README)",
-    )
-    parser.add_argument(
-        "--no-fast", dest="no_fast", action="store_true",
-        help="force the 6-pass HIGHEST spectral tier (~1e-7 solve error, "
-        "~11%% slower at 256^3); default = auto (fast tier on TPU)",
-    )
     args = parser.parse_args()
 
-    if args.no_fast:
-        import sopht_mpi_tpu
+    from sopht_mpi_tpu.utils.compile_cache import configure_compile_cache
 
-        sopht_mpi_tpu.enable_fast_spectral(False)
-    elif args.fast:
-        import sopht_mpi_tpu
+    configure_compile_cache()
 
-        sopht_mpi_tpu.enable_fast_spectral()
 
     mesh = None
     if args.n_devices > 1:

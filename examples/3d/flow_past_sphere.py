@@ -177,7 +177,7 @@ def flow_past_sphere_fused_case(
 
     ``save_interval`` (in nondimensional time t*) snapshots the vorticity
     and velocity fields at scan-window boundaries through the native async
-    dump writer - the TPU analogue of the reference's in-loop MPIIO saves
+    dump writer - the analogue of the reference's in-loop MPIIO saves
     (flow_past_sphere_case.py:129-139) that never blocks the device queue."""
     import jax
     import jax.numpy as jnp
@@ -207,8 +207,7 @@ def flow_past_sphere_fused_case(
         with_free_stream_flow=True,
         mesh=mesh,
         # comm/compute pipelining of the sharded Poisson transposes
-        # (None = default; 1 = the unpipelined control arm of the
-        # SCALING.md overlap measurement protocol)
+        # (None = default; 1 = the unpipelined control arm)
         overlap_chunks=overlap_chunks,
     )
     sphere = Sphere(
@@ -296,33 +295,18 @@ if __name__ == "__main__":
     parser.add_argument(
         "--fused", action="store_true", default=True,
         help="run the whole coupled loop as one on-device lax.scan "
-        "(the default; host loops are dispatch-latency-bound on a remote TPU)",
+        "(the default; host loops are one dispatch per step)",
     )
     parser.add_argument(
         "--host-loop", dest="fused", action="store_false",
         help="host-driven eager loop (CPU debugging)",
     )
-    parser.add_argument(
-        "--fast", action="store_true",
-        help="fast spectral mode (sopht_mpi_tpu.enable_fast_spectral): "
-        "3-pass bf16 conv matmuls + in-kernel spectral curl, ~+11%% at "
-        "256^3 at ~6.6e-6 solve error (drag validated identical)",
-    )
-    parser.add_argument(
-        "--no-fast", dest="no_fast", action="store_true",
-        help="force the 6-pass HIGHEST spectral tier (~1e-7 solve error, "
-        "~11%% slower at 256^3); default = auto (fast tier on TPU)",
-    )
     args = parser.parse_args()
 
-    if args.no_fast:
-        import sopht_mpi_tpu
+    from sopht_mpi_tpu.utils.compile_cache import configure_compile_cache
 
-        sopht_mpi_tpu.enable_fast_spectral(False)
-    elif args.fast:
-        import sopht_mpi_tpu
+    configure_compile_cache()
 
-        sopht_mpi_tpu.enable_fast_spectral()
 
     mesh = None
     if args.n_devices > 1:

@@ -11,7 +11,7 @@ loads, the fixed sphere's penalty interaction, both spreads, and the flow
 step - is ONE fused device-scanned function
 (``models.fsi.build_multi_body_fsi_step``).
 
-Physics-long TPU validation (64x64x128, n_elem=16, t=3.0,
+Physics-long validation (64x64x128, n_elem=16, t=3.0,
 doc/validation_rod_and_sphere_64x64x128.csv): the rod settles into a
 small-amplitude bending equilibrium (tip x-deflection band ~0.02 of
 x_range at Cauchy 0.1) and the sphere's drag settles to Cd ~= 0.55 -
@@ -226,25 +226,12 @@ if __name__ == "__main__":
     parser.add_argument("--n-elem", type=int, default=None)
     parser.add_argument("--n-devices", type=int, default=1)
     parser.add_argument("--precision", default="single")
-    parser.add_argument(
-        "--fast", action="store_true",
-        help="fast spectral mode (sopht_mpi_tpu.enable_fast_spectral)",
-    )
-    parser.add_argument(
-        "--no-fast", dest="no_fast", action="store_true",
-        help="force the 6-pass HIGHEST spectral tier (~1e-7 solve error, "
-        "~11%% slower at 256^3); default = auto (fast tier on TPU)",
-    )
     args = parser.parse_args()
 
-    if args.no_fast:
-        import sopht_mpi_tpu
+    from sopht_mpi_tpu.utils.compile_cache import configure_compile_cache
 
-        sopht_mpi_tpu.enable_fast_spectral(False)
-    elif args.fast:
-        import sopht_mpi_tpu
+    configure_compile_cache()
 
-        sopht_mpi_tpu.enable_fast_spectral()
 
     mesh = None
     if args.n_devices > 1:

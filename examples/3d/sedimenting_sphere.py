@@ -23,7 +23,7 @@ systematic effects, each O(10%) at the default configuration:
   the ballistic relaxation tau.
 Measured resolution trend (monotone toward v_t as the effective-radius
 correction shrinks): v_z/v_t = 0.33 at 32^3 (6 tau), 0.51 at 64^3
-(8 tau), 0.607 at 128^3 (8 tau, f32 on TPU) - the right magnitude with
+(8 tau), 0.607 at 128^3 (8 tau, f32) - the right magnitude with
 corrections of the predicted size and sign (confinement alone bounds the
 asymptote ~17% below v_t at this R/L), while the rigid-body integrator
 itself is validated exactly in tests/test_models/test_rigid_body.py
@@ -150,25 +150,12 @@ if __name__ == "__main__":
     parser.add_argument("--grid-size", type=int, default=64)
     parser.add_argument("--precision", default="double")
     parser.add_argument("--n-tau", type=float, default=6.0)
-    parser.add_argument(
-        "--fast", action="store_true",
-        help="fast spectral mode (sopht_mpi_tpu.enable_fast_spectral)",
-    )
-    parser.add_argument(
-        "--no-fast", dest="no_fast", action="store_true",
-        help="force the 6-pass HIGHEST spectral tier (~1e-7 solve error, "
-        "~11%% slower at 256^3); default = auto (fast tier on TPU)",
-    )
     args = parser.parse_args()
 
-    if args.no_fast:
-        import sopht_mpi_tpu
+    from sopht_mpi_tpu.utils.compile_cache import configure_compile_cache
 
-        sopht_mpi_tpu.enable_fast_spectral(False)
-    elif args.fast:
-        import sopht_mpi_tpu
+    configure_compile_cache()
 
-        sopht_mpi_tpu.enable_fast_spectral()
     times, vels, v_t = sedimenting_sphere_case(
         grid_size=(args.grid_size,) * 3,
         precision=args.precision,

@@ -1,16 +1,15 @@
-"""sopht_mpi_tpu: TPU-native elastohydrodynamic solver.
+"""sopht_mpi_tpu: JAX elastohydrodynamic solver for NVIDIA GPUs.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of the MPI solver
+A ground-up JAX/XLA re-design with the capabilities of the MPI solver
 `fankiat/sopht-mpi` (incompressible Navier-Stokes in vorticity form on an
 unbounded uniform 2D/3D grid, two-way coupled to Cosserat rods and rigid
 bodies via a penalty immersed-boundary method).
 
-Architecture (TPU-first, not a port):
+Architecture:
 - Fields are globally-shaped ``jax.Array`` s with ``NamedSharding`` over a
-  ``jax.sharding.Mesh`` of TPU devices; there are no ghost cells and no
-  explicit halo choreography - stencils are shifted-slice jnp ops that XLA's
-  SPMD partitioner turns into ICI halo exchanges automatically, with Pallas
-  kernels for the hot paths.
+  ``jax.sharding.Mesh`` of devices; there are no ghost cells and no
+  explicit halo choreography - stencils are shifted-slice jnp ops that XLA
+  fuses, and whose halo exchanges XLA's SPMD partitioner emits.
 - The whole timestep (flow + IBM coupling + structural dynamics) is one
   jitted SPMD program.
 - The distributed FFT Poisson solve uses per-axis local FFTs with
@@ -24,38 +23,3 @@ Reference capability map: see SURVEY.md at the repo root.
 from sopht_mpi_tpu import ops, parallel, utils, models
 
 __version__ = "0.1.0"
-
-
-def enable_fast_spectral(enable: bool | None = True) -> None:
-    """Set the construction-time DEFAULT for the Poisson solvers'
-    ``fast_spectral`` mode (3-pass bf16 hi/lo matmuls in the fused conv
-    kernels - solve rel err ~6.6e-6 vs the 6-pass HIGHEST emulation's
-    ~1e-7 - plus the in-kernel spectral-curl velocity recovery,
-    numerically exact and a measured win only under those matmuls).
-
-    Round 4: the mode is ON BY DEFAULT on the TPU backend (the unset
-    default is auto = fast-on-TPU; physics validated identical at
-    observable level in both modes - see ops/poisson.py
-    DEFAULT_FAST_SPECTRAL). Call ``enable_fast_spectral(False)`` - or
-    pass ``fast_spectral=False`` per solver/simulator - for the 6-pass
-    HIGHEST tier (~1e-7 solve error, ~11% slower at 256^3), and
-    ``enable_fast_spectral(None)`` to restore the backend-auto default
-    after an explicit override.
-
-    The mode is per-solver state (``UnboundedPoissonSolver2D/3D(...,
-    fast_spectral=...)``, or ``UnboundedFlowSimulator2D/3D(...,
-    fast_spectral=...)``); this helper only changes what ``None`` means
-    for solvers built AFTER the call - already-built solvers and
-    anything compiled from them are unaffected, and two solvers with
-    different modes coexist in one process.
-
-    Measured at 256^3 FSI on one v5e chip: 40.6 -> 36.4 ms/step (~+11%);
-    sphere-drag validation identical to ~3e-4 (Cd 1.3376 vs 1.3380).
-    The default path stays accuracy-parity with the reference's
-    float32 FFTW."""
-    from sopht_mpi_tpu.ops import poisson as _poisson
-
-    # None restores the unset auto default (fast on the TPU backend)
-    _poisson.DEFAULT_FAST_SPECTRAL = (
-        None if enable is None else bool(enable)
-    )

@@ -3,7 +3,7 @@
 The reference performs structural dynamics with the external PyElastica
 package on the master MPI rank only (SURVEY.md section 2.4); here the rod
 is a JAX pytree stepped by pure functions, so flow + coupling + structure
-jit together on TPU.
+jit together on the device.
 """
 
 from sopht_mpi_tpu.models.elastica.rod import (

@@ -9,6 +9,7 @@ methods on the rod state pytree, so the composed step jits.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -102,9 +103,10 @@ class GeneralConstraint:
         # rotational selector acts in the LAB frame: rotate the element's
         # angular velocity out, mask, rotate back
         q = state.director[:, :, k]  # (3, 3): rows are material axes
-        w_lab = q.T @ state.omega[:, k]
+        hi = jax.lax.Precision.HIGHEST
+        w_lab = jnp.matmul(q.T, state.omega[:, k], precision=hi)
         w_lab = jnp.where(self.r_sel, 0.0, w_lab)
-        omega = state.omega.at[:, k].set(q @ w_lab)
+        omega = state.omega.at[:, k].set(jnp.matmul(q, w_lab, precision=hi))
         return state._replace(velocity=vel, omega=omega)
 
 

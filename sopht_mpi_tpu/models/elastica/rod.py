@@ -6,7 +6,7 @@ package (``ea.CosseratRod.straight_rod``, consumed at
 and the 3D rod cases). This module re-implements the same physics - the
 discrete Cosserat rod equations of Gazzola, Dudte, McCormick & Mahadevan
 (2018, R. Soc. Open Sci. 5:171628) - as pure JAX functions on pytrees, so
-the whole structural step jits, scans, and differentiates on TPU.
+the whole structural step jits, scans, and differentiates on the device.
 
 Discretization (n elements, n+1 nodes, n-1 interior/voronoi regions):
 - nodes: position r (3, n+1), velocity v (3, n+1), mass m (n+1,)
@@ -108,7 +108,9 @@ def compute_strains(state: CosseratRodState, params: CosseratRodParams):
     _, tangents, dilatation, _ = compute_geometry(state, params)
     # sigma = Q (e t) - e3
     et = dilatation * tangents
-    et_material = jnp.einsum("ijn,jn->in", state.director, et)
+    et_material = jnp.einsum(
+        "ijn,jn->in", state.director, et, precision=jax.lax.Precision.HIGHEST
+    )
     e3 = jnp.zeros_like(et_material).at[2].set(1.0)
     sigma = et_material - e3
     # kappa = -log(Q_{k+1} Q_k^T) / D0
@@ -140,7 +142,9 @@ def compute_accelerations(
 
     # internal stress (material) and node forces
     stress = params.shear_diag * sigma  # S sigma
-    stress_lab = jnp.einsum("jin,jn->in", q, stress)  # Q^T S sigma
+    stress_lab = jnp.einsum(
+        "jin,jn->in", q, stress, precision=jax.lax.Precision.HIGHEST
+    )  # Q^T S sigma
     internal_forces = difference_kernel(stress_lab / dilatation)
     dvdt = (internal_forces + external_forces) / params.mass
 
@@ -153,7 +157,9 @@ def compute_accelerations(
         * params.rest_voronoi_lengths
         * eps3_inv
     )
-    t_material = jnp.einsum("ijn,jn->in", q, tangents)
+    t_material = jnp.einsum(
+        "ijn,jn->in", q, tangents, precision=jax.lax.Precision.HIGHEST
+    )
     shear_couple = (
         jnp.cross(t_material, stress, axis=0) * params.rest_lengths
     )
@@ -266,10 +272,9 @@ def make_straight_rod_arrays(
     director[1, :, :] = d2[:, None]
     director[2, :, :] = d3[:, None]
 
-    # allocate device state in the RESOLVED dtype: requesting f64 on an
-    # f32-only backend (x64 disabled, the TPU default) emits a truncation
-    # warning per leaf - mass-repeated in the dryrun gate, burying its PASS
-    # table (VERDICT r04 weak #4). Construction math above stays f64-numpy.
+    # allocate device state in the RESOLVED dtype: requesting f64 with x64
+    # disabled (the JAX default) emits a truncation warning per leaf -
+    # mass-repeated in the dryrun gate, burying its PASS table. Construction math above stays f64-numpy.
     jdtype = jax.dtypes.canonicalize_dtype(dtype)
     state = CosseratRodState(
         position=jnp.asarray(position, jdtype),

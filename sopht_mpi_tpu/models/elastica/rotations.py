@@ -5,7 +5,7 @@ The reference delegates rod rotations to PyElastica's numba kernels
 ``ea.CosseratRod`` in /root/reference/examples/2d_examples/FlowPastRodCase/
 flow_past_rod.py:74-84). Here they are closed-form Rodrigues formulas on
 batched arrays - branch-free (series fallbacks via ``jnp.where``) so they
-jit and differentiate cleanly on TPU.
+jit and differentiate cleanly on the device.
 
 Conventions: a director collection ``Q`` has shape (3, 3, n); row ``i`` of
 ``Q[..., k]`` is the lab-frame direction of material axis ``d_i`` of
@@ -14,6 +14,7 @@ element ``k``, so ``Q u_lab -> u_material``.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 _SMALL = 1e-10
@@ -100,5 +101,5 @@ def relative_rotation_vectors(director_collection):
     q_next = director_collection[..., 1:]  # (3, 3, n-1)
     q_prev = director_collection[..., :-1]
     # R = Q_{k+1} Q_k^T
-    rot = jnp.einsum("ijn,kjn->ikn", q_next, q_prev)
+    rot = jnp.einsum("ijn,kjn->ikn", q_next, q_prev, precision=jax.lax.Precision.HIGHEST)
     return log_rotation_vector(rot)

@@ -1,4 +1,4 @@
-"""2D unbounded flow simulator (vorticity formulation, TPU-native).
+"""2D unbounded flow simulator (vorticity formulation).
 
 Capability parity with ``UnboundedFlowSimulator2D``
 (/root/reference/sopht_mpi/simulator/flow/flow_simulators_mpi_2d.py:20-328):
@@ -6,7 +6,7 @@ flow types ``passive_scalar`` / ``navier_stokes`` /
 ``navier_stokes_with_forcing``, free-stream flow, boundary sponge
 penalisation, stable-timestep control, max-vorticity diagnostic.
 
-TPU-native design: fields are ghost-free globally-shaped jax arrays
+Design: fields are ghost-free globally-shaped jax arrays
 (optionally sharded over a device mesh); one ``jit``-compiled step function
 advances the whole flow state. ``dt`` and the free-stream velocity are
 traced arguments, so time loops never retrace. A functional core
@@ -62,7 +62,7 @@ class UnboundedFlowSimulator2D:
     :param with_free_stream_flow: add a uniform free-stream velocity.
     :param real_t: field dtype (default float32, reference :32).
     :param mesh: optional jax device mesh (parallel.create_mesh); the
-        TPU-native analogue of the reference's ``rank_distribution``.
+        JAX analogue of the reference's ``rank_distribution``.
     :param penalty_zone_width: wall sponge width in cells (default 2).
     """
 
@@ -104,16 +104,13 @@ class UnboundedFlowSimulator2D:
                 "Free stream flow not defined for passive advection diffusion!"
             )
         self.penalty_zone_width = kwargs.get("penalty_zone_width", 2)
-        # per-solver fast spectral mode (None = poisson.DEFAULT_FAST_SPECTRAL
-        # at solver construction; see ops/poisson.py)
-        self.fast_spectral = kwargs.get("fast_spectral", None)
-        unknown = set(kwargs) - {"penalty_zone_width", "fast_spectral"}
+        unknown = set(kwargs) - {"penalty_zone_width"}
         if unknown:
             # a typo'd option silently running the defaults would poison
-            # benchmark control arms (ADVICE r04, mirrored from 3D)
+            # benchmark control arms
             raise TypeError(
                 f"Unknown keyword argument(s) {sorted(unknown)}; "
-                "supported: ['fast_spectral', 'penalty_zone_width']"
+                "supported: ['penalty_zone_width']"
             )
         if mesh is not None:
             check_grid_divisibility(self.grid_size, mesh)
@@ -163,7 +160,6 @@ class UnboundedFlowSimulator2D:
                 x_range=self.x_range,
                 real_t=self.real_t,
                 mesh=self.mesh,
-                fast_spectral=getattr(self, "fast_spectral", None),
             )
 
     # vorticity is an alias of the primary scalar for NS flows (reference :150)

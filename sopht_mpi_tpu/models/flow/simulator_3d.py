@@ -1,4 +1,4 @@
-"""3D unbounded flow simulator (rotational-form vorticity NS, TPU-native).
+"""3D unbounded flow simulator (rotational-form vorticity NS).
 
 Capability parity with ``UnboundedFlowSimulator3D``
 (/root/reference/sopht_mpi/simulator/flow/flow_simulators_mpi_3d.py:24-476):
@@ -107,35 +107,25 @@ class UnboundedFlowSimulator3D:
                 "Free stream flow not defined for passive advection diffusion!"
             )
         self.penalty_zone_width = kwargs.get("penalty_zone_width", 2)
-        # per-solver fast spectral mode (None = poisson.DEFAULT_FAST_SPECTRAL
-        # at solver construction; see ops/poisson.py)
-        self.fast_spectral = kwargs.get("fast_spectral", None)
         # comm/compute pipelining request of the sharded Poisson solve
         # (None = fft.DEFAULT_OVERLAP_CHUNKS; 1 = unpipelined control arm)
         self.overlap_chunks = kwargs.get("overlap_chunks", None)
         # opt-in bf16 wire format for the distributed spectral transposes
-        # (halves all_to_all bytes, ~2e-3 solve rel err; pod-scale knob)
+        # (halves all_to_all bytes, ~2e-3 solve rel err)
         self.comm_bf16 = bool(kwargs.get("comm_bf16", False))
-        # None = auto (Pallas streaming stencils on real TPU); tests
-        # force True to exercise the kernels in interpret mode on CPU.
-        # With a mesh the per-shard shard_map kernels serve instead of the
-        # unsharded plane-streaming ones (ops/pallas_stencils_sharded.py).
-        self.use_pallas = kwargs.get("use_pallas", None)
         self.filter_setting_dict = kwargs.get(
             "filter_setting_dict", {"order": 2, "type": "multiplicative"}
         ) or {"order": 2, "type": "multiplicative"}
         known_kwargs = {
             "penalty_zone_width",
-            "fast_spectral",
             "overlap_chunks",
             "comm_bf16",
-            "use_pallas",
             "filter_setting_dict",
         }
         unknown = set(kwargs) - known_kwargs
         if unknown:
             # a typo'd option (e.g. overlap_chunk=1) silently running the
-            # defaults would poison benchmark control arms (ADVICE r04)
+            # defaults would poison benchmark control arms
             raise TypeError(
                 f"Unknown keyword argument(s) {sorted(unknown)}; "
                 f"supported: {sorted(known_kwargs)}"
@@ -189,7 +179,6 @@ class UnboundedFlowSimulator3D:
                 x_range=self.x_range,
                 real_t=self.real_t,
                 mesh=self.mesh,
-                fast_spectral=self.fast_spectral,
                 overlap_chunks=self.overlap_chunks,
                 comm_bf16=self.comm_bf16,
             )
@@ -225,16 +214,6 @@ class UnboundedFlowSimulator3D:
             ),
             filter_type=self.filter_setting_dict["type"],
             poisson_solver=getattr(self, "unbounded_poisson_solver", None),
-            # Pallas streaming kernels for the hot NS stencils: the
-            # unsharded plane kernels on a meshless TPU simulator, the
-            # per-shard shard_map kernels (explicit ppermute halos) on a
-            # sharded one
-            use_pallas=(
-                jax.default_backend() == "tpu"
-                if self.use_pallas is None
-                else self.use_pallas
-            ),
-            mesh=self.mesh,
         )
 
         def step(
@@ -249,8 +228,8 @@ class UnboundedFlowSimulator3D:
 
         def step_l1(state, dt, free_stream_velocity, poisson_greens):
             """(state, velocity |u|_1 max) - the CFL quantity rides out of
-            the step (from the curl kernel on the Pallas path) so fused
-            loops need no extra velocity read for dt control."""
+            the step so fused loops need no extra velocity read for dt
+            control."""
             return flow_step_3d(
                 state, dt, free_stream_velocity,
                 poisson_greens=poisson_greens,
@@ -357,86 +336,19 @@ def compute_flow_velocity_3d(
     vorticity, free_stream_velocity, *,
     dx, penalty_zone_width, poisson_solver, with_free_stream,
     poisson_greens=None,
-    use_pallas=False,
-    mesh=None,
     return_velocity_l1_max=False,
-    skip_penalise=False,
 ):
     """Wall-penalise vorticity -> vector Poisson -> curl -> free stream
     (reference :382-393). Returns (vorticity, velocity), plus the global
-    ``max |u|_1`` of the new velocity (the CFL control quantity, reduced
-    inside the curl kernel on the Pallas path) when
-    ``return_velocity_l1_max``.
-
-    When the solver was built with ``fast_spectral=True`` (the TPU
-    default since round 4; see ops/poisson.py DEFAULT_FAST_SPECTRAL) the
-    Pallas path instead mixes
-    the curl INSIDE the fused z conv kernel
-    (``UnboundedPoissonSolver3D.velocity_from_vorticity_fused``): the
-    streamfunction never materializes, and the width-1 ring mask +
-    free-stream + CFL reduction ride the final c2r merge kernel."""
-    if not skip_penalise:
-        vorticity = penalise_field_boundary_vector_3d(
-            vorticity, penalty_zone_width
-        )
-    l1_max = None
-    if (
-        use_pallas
-        and poisson_solver is not None
-        and getattr(poisson_solver, "fast_spectral", False)
-        and getattr(poisson_solver, "fused_curl_supported", None) is not None
-        and poisson_solver.fused_curl_supported(vorticity.dtype)
-    ):
-        fsv = (
-            jnp.asarray(free_stream_velocity, vorticity.dtype)
-            if with_free_stream
-            else jnp.zeros(3, vorticity.dtype)
-        )
-        velocity, l1_max = poisson_solver.velocity_from_vorticity_fused(
-            vorticity, poisson_greens, fsv
-        )
-        if return_velocity_l1_max:
-            return vorticity, velocity, l1_max
-        return vorticity, velocity
+    ``max |u|_1`` of the new velocity (the CFL control quantity) when
+    ``return_velocity_l1_max``."""
+    vorticity = penalise_field_boundary_vector_3d(vorticity, penalty_zone_width)
     stream_func = poisson_solver.vector_field_solve(vorticity, poisson_greens)
-    if use_pallas and mesh is not None:
-        from sopht_mpi_tpu.ops.pallas_stencils_sharded import curl_3d_sharded
-
-        res = curl_3d_sharded(
-            stream_func,
-            jnp.asarray(0.5 / dx, vorticity.dtype),
-            mesh,
-            add_vector=(
-                jnp.asarray(free_stream_velocity, vorticity.dtype)
-                if with_free_stream
-                else None
-            ),
-            compute_l1_max=return_velocity_l1_max,
-        )
-        velocity, l1_max = res if return_velocity_l1_max else (res, None)
-    elif use_pallas:
-        from sopht_mpi_tpu.ops.pallas_stencils_3d import curl_3d_pallas
-
-        # free-stream add folded into the curl kernel: saves one full
-        # read+write pass over the velocity field
-        res = curl_3d_pallas(
-            stream_func,
-            jnp.asarray(0.5 / dx, vorticity.dtype),
-            add_vector=(
-                jnp.asarray(free_stream_velocity, vorticity.dtype)
-                if with_free_stream
-                else None
-            ),
-            compute_l1_max=return_velocity_l1_max,
-        )
-        velocity, l1_max = res if return_velocity_l1_max else (res, None)
-    else:
-        velocity = curl_3d(stream_func, jnp.asarray(0.5 / dx, vorticity.dtype))
-        if with_free_stream:
-            velocity = add_fixed_val(velocity, free_stream_velocity)
-        if return_velocity_l1_max:
-            l1_max = jnp.max(jnp.sum(jnp.abs(velocity), axis=0))
+    velocity = curl_3d(stream_func, jnp.asarray(0.5 / dx, vorticity.dtype))
+    if with_free_stream:
+        velocity = add_fixed_val(velocity, free_stream_velocity)
     if return_velocity_l1_max:
+        l1_max = jnp.max(jnp.sum(jnp.abs(velocity), axis=0))
         return vorticity, velocity, l1_max
     return vorticity, velocity
 
@@ -455,8 +367,6 @@ def flow_step_3d(
     filter_type,
     poisson_solver,
     poisson_greens=None,
-    use_pallas=False,
-    mesh=None,
     return_velocity_l1_max=False,
 ) -> FlowState3D:
     """One full 3D flow timestep (pure; jit/scan-safe). Ordering matches
@@ -464,9 +374,9 @@ def flow_step_3d(
 
     ``return_velocity_l1_max=True`` returns ``(state, l1_max)`` where
     ``l1_max`` is the new velocity's global ``max |u|_1`` (the CFL control
-    quantity, reduced inside the curl kernel on the Pallas path so the
-    NEXT step's dt control needs no extra velocity read), or None for the
-    passive flow types whose velocity never changes in-step."""
+    quantity, so the NEXT step's dt control needs no extra velocity read),
+    or None for the passive flow types whose velocity never changes
+    in-step."""
     field = state.primary_field
     velocity = state.velocity_field
     forcing = state.eul_grid_forcing_field
@@ -488,79 +398,15 @@ def flow_step_3d(
             )
         # rotational form transport (reference :395-413)
         pref = jnp.asarray(dt / (2.0 * dx), real_t)
-        penalised_in_transport = False
-        if use_pallas and mesh is not None:
-            # per-shard Pallas kernels with explicit ppermute halos; the
-            # filter stays on the jnp ops (XLA SPMD emits its halos)
-            from sopht_mpi_tpu.ops.pallas_stencils_sharded import (
-                diffusion_penalise_sharded_supported,
-                diffusion_penalise_vector_3d_sharded,
-                diffusion_timestep_vector_3d_sharded,
-                rotational_curl_add_3d_sharded,
+        velocity_cross_vorticity = cross_product_3d(velocity, field)
+        field = update_vorticity_from_velocity_forcing_3d(
+            field, velocity_cross_vorticity, pref
+        )
+        field = diffusion_timestep_vector_3d(field, nu_dt_by_dx2)
+        if filter_order > 0:
+            field = laplacian_filter_vector_3d(
+                field, filter_order, filter_type
             )
-
-            field = rotational_curl_add_3d_sharded(field, velocity, pref,
-                                                   mesh)
-            if filter_order == 0 and diffusion_penalise_sharded_supported(
-                field.shape, mesh, penalty_zone_width, field.dtype.itemsize
-            ):
-                # boundary penalisation fused into the sharded diffusion
-                # pass (the velocity-recovery stage then skips it)
-                field = diffusion_penalise_vector_3d_sharded(
-                    field, nu_dt_by_dx2, penalty_zone_width, mesh
-                )
-                penalised_in_transport = True
-            else:
-                field = diffusion_timestep_vector_3d_sharded(
-                    field, nu_dt_by_dx2, mesh
-                )
-                if filter_order > 0:
-                    field = laplacian_filter_vector_3d(
-                        field, filter_order, filter_type
-                    )
-        elif use_pallas:
-            from sopht_mpi_tpu.ops.pallas_stencils_3d import (
-                diffusion_penalise_supported,
-                diffusion_penalise_vector_3d_pallas,
-                diffusion_timestep_vector_3d_pallas,
-                laplacian_filter_vector_3d_pallas,
-                penalise_field_boundary_vector_3d_pallas,
-                rotational_curl_add_3d_pallas,
-            )
-
-            field = rotational_curl_add_3d_pallas(field, velocity, pref)
-            if filter_order == 0 and diffusion_penalise_supported(
-                field.shape, penalty_zone_width
-            ):
-                # boundary penalisation fused into the diffusion pass
-                # (the velocity-recovery stage then skips it)
-                field = diffusion_penalise_vector_3d_pallas(
-                    field, nu_dt_by_dx2, penalty_zone_width
-                )
-                penalised_in_transport = True
-            else:
-                field = diffusion_timestep_vector_3d_pallas(
-                    field, nu_dt_by_dx2
-                )
-                if filter_order > 0:
-                    field = laplacian_filter_vector_3d_pallas(
-                        field, filter_order, filter_type
-                    )
-                if penalty_zone_width > 0:
-                    field = penalise_field_boundary_vector_3d_pallas(
-                        field, penalty_zone_width
-                    )
-                    penalised_in_transport = True
-        else:
-            velocity_cross_vorticity = cross_product_3d(velocity, field)
-            field = update_vorticity_from_velocity_forcing_3d(
-                field, velocity_cross_vorticity, pref
-            )
-            field = diffusion_timestep_vector_3d(field, nu_dt_by_dx2)
-            if filter_order > 0:
-                field = laplacian_filter_vector_3d(
-                    field, filter_order, filter_type
-                )
         res = compute_flow_velocity_3d(
             field,
             free_stream_velocity,
@@ -569,10 +415,7 @@ def flow_step_3d(
             poisson_solver=poisson_solver,
             with_free_stream=with_free_stream,
             poisson_greens=poisson_greens,
-            use_pallas=use_pallas,
-            mesh=mesh,
             return_velocity_l1_max=return_velocity_l1_max,
-            skip_penalise=penalised_in_transport,
         )
         if return_velocity_l1_max:
             field, velocity, l1_max = res

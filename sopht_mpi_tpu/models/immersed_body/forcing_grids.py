@@ -18,6 +18,7 @@ law - the reference's sopht grids carry the same minus sign).
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 
@@ -116,7 +117,9 @@ class CircularCylinderForcingGrid(ImmersedBodyForcingGrid):
     def _rotated_points(self, state):
         """Body-frame marker offsets rotated into the global frame
         (z-rotation is the only one that moves in-plane points)."""
-        return (state.director[:2, :2] @ self._local_points).astype(
+        return jnp.matmul(
+            state.director[:2, :2], self._local_points, precision=jax.lax.Precision.HIGHEST
+        ).astype(
             self._local_points.dtype
         )
 
@@ -197,7 +200,9 @@ class SphereForcingGrid(ImmersedBodyForcingGrid):
         return forces, torques
 
     def _rotated_points(self, state):
-        return (state.director @ self._local_points).astype(
+        return jnp.matmul(
+            state.director, self._local_points, precision=jax.lax.Precision.HIGHEST
+        ).astype(
             self._local_points.dtype
         )
 

@@ -10,13 +10,14 @@ Functional design: all marker kinematics are pure jnp expressions on the
 rod state pytree, so the full FSI interaction jits. The per-point element
 index/angle bookkeeping of the surface grid is precomputed as static
 arrays (radii are time-invariant), leaving only vectorized gathers at
-call time - the TPU-friendly replacement for the reference's per-element
+call time - the vectorized replacement for the reference's per-element
 Python loops.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from sopht_mpi_tpu.models.immersed_body.forcing_grids import (
@@ -126,7 +127,9 @@ class CosseratRodEdgeForcingGrid(ImmersedBodyForcingGrid):
         normal = jnp.stack([-tangent[1], tangent[0]])
         arm = self._radius * normal
         # lab-frame angular velocity, z component (the only in-plane one)
-        omega_z = jnp.einsum("jn,jn->n", rod_state.director[:, 2], rod_state.omega)
+        omega_z = jnp.einsum(
+            "jn,jn->n", rod_state.director[:, 2], rod_state.omega, precision=jax.lax.Precision.HIGHEST
+        )
         return centers, vels, omega_z, arm
 
     @property
@@ -166,7 +169,8 @@ class CosseratRodEdgeForcingGrid(ImmersedBodyForcingGrid):
         torque_z = arm[0] * df[1] - arm[1] * df[0]
         elem_torque_lab = jnp.zeros((3, n), dtype).at[2].set(torque_z)
         torques = jnp.einsum(
-            "ijn,jn->in", rod_state.director, elem_torque_lab
+            "ijn,jn->in", rod_state.director, elem_torque_lab,
+            precision=jax.lax.Precision.HIGHEST,
         )
         return forces, torques
 
@@ -248,7 +252,9 @@ class CosseratRodSurfaceForcingGrid(ImmersedBodyForcingGrid):
         centers = 0.5 * (state.position[:, 1:] + state.position[:, :-1])
         vels = 0.5 * (state.velocity[:, 1:] + state.velocity[:, :-1])
         # omega in lab frame: w_lab = Q^T w_material
-        omega_lab = jnp.einsum("jin,jn->in", state.director, state.omega)
+        omega_lab = jnp.einsum(
+            "jin,jn->in", state.director, state.omega, precision=jax.lax.Precision.HIGHEST
+        )
         d1 = state.director[0]  # (3, n): material axis 1 in lab frame
         d2 = state.director[1]
         return (
@@ -298,7 +304,8 @@ class CosseratRodSurfaceForcingGrid(ImmersedBodyForcingGrid):
             jnp.zeros((3, n), dtype).at[:, self._elem_idx].add(torque_lab)
         )
         torques = jnp.einsum(
-            "ijn,jn->in", rod_state.director, elem_torque_lab
+            "ijn,jn->in", rod_state.director, elem_torque_lab,
+            precision=jax.lax.Precision.HIGHEST,
         )
         return forces, torques
 

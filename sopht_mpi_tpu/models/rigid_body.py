@@ -26,6 +26,11 @@ import jax.numpy as jnp
 import numpy as np
 
 
+def _mm(a, b):
+    """Full-float32 matrix product (no TF32 on GPUs)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 class RigidBodyState(NamedTuple):
     """Rigid body kinematic state (pytree).
 
@@ -85,8 +90,10 @@ def _rotate_matrix(director, omega, dt):
         ],
         dtype=director.dtype,
     )
-    rot = jnp.eye(3, dtype=director.dtype) + sinc * px + cosc * (px @ px)
-    return rot @ director
+    rot = (
+        jnp.eye(3, dtype=director.dtype) + sinc * px + cosc * _mm(px, px)
+    )
+    return _mm(rot, director)
 
 
 def rigid_body_acceleration(
@@ -102,9 +109,11 @@ def rigid_body_acceleration(
     """
     q = state.director
     inertia_body = jnp.asarray(inertia_body, q.dtype)
-    i_omega = q @ (inertia_body * (q.T @ state.omega))
+    i_omega = _mm(q, inertia_body * _mm(q.T, state.omega))
     gyro = jnp.cross(state.omega, i_omega)
-    alpha = q @ ((q.T @ (jnp.asarray(torque, q.dtype) - gyro)) / inertia_body)
+    alpha = _mm(
+        q, _mm(q.T, jnp.asarray(torque, q.dtype) - gyro) / inertia_body
+    )
     acc = jnp.asarray(force, q.dtype) / mass
     return acc, alpha
 

@@ -1,6 +1,6 @@
 """Distributed numerics: stencil ops, Poisson solvers, immersed-boundary ops.
 
-TPU-native counterpart of /root/reference/sopht_mpi/numeric/ (L2 in
+JAX counterpart of /root/reference/sopht_mpi/numeric/ (L2 in
 SURVEY.md). All ops are pure functions on globally-shaped (optionally
 sharded) jax arrays.
 """

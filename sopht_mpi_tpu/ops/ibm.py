@@ -1,6 +1,6 @@
 """Eulerian <-> Lagrangian grid transfer ops for the immersed boundary method.
 
-TPU-native counterpart of the reference's
+JAX counterpart of the reference's
 ``EulerianLagrangianGridCommunicatorMPI2D/3D``
 (/root/reference/sopht_mpi/numeric/immersed_boundary_ops/
 EulerianLagrangianGridCommunicatorMPI2D.py, ...MPI3D.py): nearest-index +
@@ -8,7 +8,7 @@ support computation, cosine / Peskin-2002 delta-function weights,
 Eulerian-to-Lagrangian gather interpolation, and Lagrangian-to-Eulerian
 scatter-add spreading.
 
-Design (TPU-first): Lagrangian markers are REPLICATED across devices
+Design: Lagrangian markers are REPLICATED across devices
 (num markers << num grid cells), so the reference's entire
 marker-to-rank remapping machinery (MPILagrangianFieldCommunicator, dynamic
 buffer reallocation, ghost-sum reverse halo reduction -
@@ -29,9 +29,10 @@ import jax.numpy as jnp
 
 INTERP_KERNEL_WIDTH = 2
 
-# The separable-matmul transfer einsums MUST run at full float32 on the
-# MXU: the default TPU matmul precision drops inputs to bfloat16, which
-# costs ~3 decimal digits in the delta weights.
+# The separable-matmul transfer einsums and the weight-matrix build MUST
+# run at full float32: given no precision, a GPU may run an f32 matmul in
+# TF32 (a 10-bit mantissa), which costs ~3 decimal digits in the delta
+# weights.
 _MM_PRECISION = jax.lax.Precision.HIGHEST
 
 
@@ -155,9 +156,8 @@ def axis_delta_weight_matrices(
     (y, x) in 2D) such that the full delta weight of marker ``m`` at
     window cell (z, y, x) is ``Az[m, z] * Ay[m, y] * Ax[m, x]`` -
     numerically the same weights as :func:`interpolation_weights`,
-    restructured so both transfer directions become MXU matmuls instead of
-    XLA gather/scatter (TPU scatter over colliding marker supports
-    serializes; measured ~2x faster at 4.6k markers / 72^3 window).
+    restructured so both transfer directions become dense matmuls instead
+    of XLA gather/scatter.
 
     Support indices are CLIPPED to the window per axis (one-hot rows
     accumulate onto the edge cell), matching
@@ -171,7 +171,9 @@ def axis_delta_weight_matrices(
         w_axis = int(window_shape[g])
         idx = jnp.clip(support_idx[comp], 0, w_axis - 1)  # (2w, n)
         oh = jax.nn.one_hot(idx, w_axis, dtype=d1.dtype)  # (2w, n, W)
-        mats.append(jnp.einsum("sn,snw->nw", d1[comp], oh))
+        mats.append(
+            jnp.einsum("sn,snw->nw", d1[comp], oh, precision=_MM_PRECISION)
+        )
     return tuple(mats)
 
 
@@ -215,7 +217,7 @@ def lagrangian_to_eulerian_spread_mm(eul_grid_field, lag_grid_field, axis_mats):
 
     Same contract/result as :func:`lagrangian_to_eulerian_spread` (modulo
     float summation order); no scatter - the marker contraction is one
-    MXU matmul per component batch.
+    matmul per component batch.
     """
     grid_dim = len(axis_mats)
     vector = lag_grid_field.ndim == 2

@@ -1,11 +1,11 @@
-"""2D Eulerian grid stencil ops (functional, global-array, TPU-first).
+"""2D Eulerian grid stencil ops (functional, global-array).
 
 Capability parity with /root/reference/sopht_mpi/numeric/eulerian_grid_ops/
 stencil_ops_2d/ (diffusion flux/timestep, conservative ENO3 advection
 flux/timestep, outplane curl, vorticity update from velocity forcing,
 boundary penalisation, Brinkmann penalisation, char func from level set).
 
-Design differences from the reference (deliberate, TPU-native):
+Design differences from the reference (deliberate):
 - Fields are ghost-free global arrays; what the reference achieves with halo
   exchange + interior/boundary kernel splits + PROC_NULL wall logic
   (e.g. diffusion_flux_mpi_2d.py:33-140) is here a single shifted-slice jnp

@@ -1,4 +1,4 @@
-"""3D Eulerian grid stencil ops (functional, global-array, TPU-first).
+"""3D Eulerian grid stencil ops (functional, global-array).
 
 Capability parity with /root/reference/sopht_mpi/numeric/eulerian_grid_ops/
 stencil_ops_3d/ (diffusion, conservative ENO3 advection, curl, divergence,

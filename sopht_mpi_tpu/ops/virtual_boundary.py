@@ -1,6 +1,6 @@
 """Penalty immersed-boundary ("virtual boundary") forcing.
 
-TPU-native counterpart of ``VirtualBoundaryForcingMPI``
+JAX counterpart of ``VirtualBoundaryForcingMPI``
 (/root/reference/sopht_mpi/numeric/immersed_boundary_ops/
 VirtualBoundaryForcingMPI.py:21-459), after Goldstein 1993 JCP. The penalty
 force on the markers is

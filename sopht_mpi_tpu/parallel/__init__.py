@@ -1,6 +1,6 @@
 """Distributed backbone: device mesh, shardings, and distributed FFT.
 
-TPU-native counterpart of the reference's L1 MPI runtime
+JAX counterpart of the reference's L1 MPI runtime
 (/root/reference/sopht_mpi/utils/: MPIConstruct, MPIGhostCommunicator,
 MPIFieldCommunicator). Halo exchange, scatter/gather and reductions are not
 separate subsystems here - they are what XLA's SPMD partitioner emits for

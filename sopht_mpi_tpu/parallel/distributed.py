@@ -1,13 +1,13 @@
 """Multi-host bootstrap and automatic process-grid factoring.
 
-TPU-pod counterpart of the reference's ``MPIConstruct2D/3D`` startup logic
+Multi-host counterpart of the reference's ``MPIConstruct2D/3D`` startup logic
 (/root/reference/sopht_mpi/utils/mpi_utils_3d.py:7-83): where the reference
 calls ``MPI.Compute_dims(world_size, rank_distribution)`` to factor ranks
 over the distributable grid axes and ``Create_cart`` to build the topology,
 this module factors ``jax.device_count()`` over the shardable mesh axes
 (z/y in 3D, y/x in 2D; x always stays FFT-aligned-local in 3D, matching
 the reference's default ``rank_distribution=[0,...,0,1]``) and initialises
-the JAX distributed runtime on pods.
+the JAX distributed runtime on clusters.
 """
 
 from __future__ import annotations
@@ -15,19 +15,11 @@ from __future__ import annotations
 import os
 
 
-# env hints that a multi-host JAX runtime is expected; mirrors what
-# jax.distributed.initialize auto-detects (TPU pod metadata, coordinator
-# address for manual clusters)
+# env hints that a multi-host JAX runtime is expected (the coordinator
+# address a launcher exports for jax.distributed.initialize)
 _DIST_ENV_HINTS = (
     "JAX_COORDINATOR_ADDRESS",
     "COORDINATOR_ADDRESS",
-    "MEGASCALE_COORDINATOR_ADDRESS",
-    "TPU_WORKER_HOSTNAMES",
-    # Cloud TPU VM runtime signals: jax.distributed auto-detects pod
-    # topology via the metadata server, so the coordinator env vars above
-    # are typically ABSENT on a plain `gcloud compute tpus tpu-vm` slice
-    "TPU_WORKER_ID",
-    "CLOUD_TPU_TASK_ID",
 )
 
 
@@ -38,8 +30,8 @@ def initialize_distributed(**kwargs) -> bool:
     reference's scripts are likewise identical on every rank):
 
     - explicit kwargs (``coordinator_address=...``) -> always initialise;
-    - a pod/cluster env hint present -> ``jax.distributed.initialize()``
-      with auto-detection;
+    - a coordinator env hint present -> ``jax.distributed.initialize()``
+      with auto-detection, which raises if the cluster cannot be joined;
     - plain single-host run -> no-op.
 
     Returns whether the distributed runtime was (or already is) live.
@@ -59,19 +51,7 @@ def initialize_distributed(**kwargs) -> bool:
         os.environ.get(k) is not None for k in _DIST_ENV_HINTS
     ):
         return False
-    if kwargs:
-        jax.distributed.initialize(**kwargs)
-        return True
-    try:
-        jax.distributed.initialize()
-    except Exception as e:  # single-host TPU VM without pod metadata
-        from sopht_mpi_tpu.utils import logger
-
-        logger.warning(
-            f"jax.distributed auto-initialization failed ({e!r}); "
-            "continuing single-host"
-        )
-        return False
+    jax.distributed.initialize(**kwargs)
     return True
 
 
@@ -83,8 +63,8 @@ def compute_mesh_dims(
     """Factor ``n_devices`` over the two shardable mesh axes.
 
     The reference's ``MPI.Compute_dims`` + even-divisibility check
-    (mpi_utils_2d.py:47-58): prefer a slab on the leading axis (one ICI
-    ring of halo traffic, and the layout every example defaults to), fall
+    (mpi_utils_2d.py:47-58): prefer a slab on the leading axis (halo
+    traffic along one axis, and the layout every example defaults to), fall
     back to the most balanced pencil whose axes divide the grid (on a
     balance tie, more devices on the leading axis). Raises when no
     factorization divides the grid evenly.

@@ -1,11 +1,11 @@
-"""Distributed real FFTs over a TPU device mesh.
+"""Distributed real FFTs over a device mesh.
 
-TPU-native replacement for the reference's ``mpi4py-fft`` layer
+JAX replacement for the reference's ``mpi4py-fft`` layer
 (``FFTMPI2D/3D``, /root/reference/sopht_mpi/numeric/eulerian_grid_ops/
 poisson_solver_2d/fft_mpi_2d.py, poisson_solver_3d/fft_mpi_3d.py), which
 wraps FFTW with MPI all-to-all transposes. Here each device runs local
-XLA FFTs along its unsharded axes and ``lax.all_to_all`` over the ICI
-performs the pencil transposes, all inside ``shard_map`` so the whole
+XLA FFTs along its unsharded axes and ``lax.all_to_all`` (NCCL between
+GPUs) performs the pencil transposes, all inside ``shard_map`` so the whole
 pipeline lives in one jitted SPMD program.
 
 Layouts (see parallel/mesh.py for grid conventions):
@@ -157,18 +157,26 @@ def _irfft3_local(fourier, *, pz: int, py: int, nx: int):
 #
 # The free-space Poisson solve transforms a zero-padded (2N)^dim domain and
 # keeps only the first N cells of the inverse. Padding lazily per axis
-# (``mxu_fft.fft_padded``) and truncating as early as possible
-# (``ifft_truncated``) means the all_to_all transposes move the UNPADDED
-# volume - 4x (3D pencil) / 2x (2D slab) less ICI traffic than transforming
-# the monolithically padded cube, mirroring the single-device fast path in
-# ops/poisson.py. The reference's counterpart is the doubling communicator +
-# PFFT (UnboundedPoissonSolverMPI3D.py:190-382).
+# (``fft_padded``) and truncating as early as possible (``ifft_truncated``)
+# means the all_to_all transposes move the UNPADDED volume - 4x (3D pencil)
+# / 2x (2D slab) less traffic than transforming the monolithically padded
+# cube, mirroring the single-device path in ops/poisson.py. The reference's
+# counterpart is the doubling communicator + PFFT
+# (UnboundedPoissonSolverMPI3D.py:190-382).
+
+
+def fft_padded(x, axis: int, m: int):
+    """FFT of length ``m`` along ``axis`` of ``x`` zero-padded to ``m``."""
+    return jnp.fft.fft(x, n=m, axis=axis)
+
+
+def ifft_truncated(f, axis: int, out_len: int):
+    """First ``out_len`` entries of ``jnp.fft.ifft(f, axis=axis)``."""
+    return lax.slice_in_dim(jnp.fft.ifft(f, axis=axis), 0, out_len, axis=axis)
 
 
 def _convolve2_local(field, greens, *, py: int, px: int, ny: int, nx: int,
                      fxp: int):
-    from sopht_mpi_tpu.parallel.mxu_fft import fft_padded, ifft_truncated
-
     if px > 1:
         field = lax.all_to_all(
             field, "x", split_axis=0, concat_axis=1, tiled=True
@@ -194,103 +202,17 @@ def _convolve2_local(field, greens, *, py: int, px: int, ny: int, nx: int,
     return out
 
 
-def _pallas_mid_passes_ok(m: int, b: int, *, conv: bool = False) -> bool:
-    """Whether the per-shard Pallas kernels can serve a middle-axis pass of
-    doubled length ``m`` over lane batch ``b``. ``conv=True`` checks the
-    fused greens pass's stricter tile budget."""
-    from sopht_mpi_tpu.parallel.pallas_fft import (
-        conv_pass_tile_ok,
-        pallas_fft_supported,
-        pass_tile_ok,
-    )
-
-    ok = conv_pass_tile_ok if conv else pass_tile_ok
-    return pallas_fft_supported(m) and ok(b, m)
-
-
-def _split_reim(f):
-    return (jnp.real(f).astype(jnp.float32), jnp.imag(f).astype(jnp.float32))
-
-
-def _fwd_y_local(f, my: int, use_pallas: bool):
-    """Per-shard padded forward pass along axis 1 of a complex 3D shard:
-    Pallas split-spectrum kernel on TPU shards, MXU einsum elsewhere."""
-    if not use_pallas:
-        from sopht_mpi_tpu.parallel.mxu_fft import fft_padded
-
-        return fft_padded(f, 1, my)
-    from sopht_mpi_tpu.parallel.pallas_fft import fft_pass_padded
-
-    rr, ii = fft_pass_padded(*_split_reim(f), my)
-    return jax.lax.complex(rr, ii)
-
-
-def _inv_y_local(f, ny: int, use_pallas: bool):
-    if not use_pallas:
-        from sopht_mpi_tpu.parallel.mxu_fft import ifft_truncated
-
-        return ifft_truncated(f, 1, ny)
-    from sopht_mpi_tpu.parallel.pallas_fft import ifft_pass_truncated
-
-    rr, ii = ifft_pass_truncated(*_split_reim(f))
-    return jax.lax.complex(rr, ii)
-
-
-def _conv_z_local(f, greens, nz: int, use_pallas: bool, fast: bool = False):
-    """Per-shard fused padded-forward * greens -> truncated-inverse along
-    axis 0, via the (1, L, rest) view; einsum passes off-TPU. ``fast``
-    selects the 3-pass bf16 conv matmuls (the owning solver's
-    ``fast_spectral``, threaded through the distributed convolve so pods
-    get the same conv tier as the single-chip path)."""
-    if not use_pallas:
-        from sopht_mpi_tpu.parallel.mxu_fft import fft_padded, ifft_truncated
-
-        return ifft_truncated(fft_padded(f, 0, 2 * nz) * greens, 0, nz)
-    from sopht_mpi_tpu.parallel.pallas_fft import fft_greens_ifft_pass
-
-    shp = f.shape
-    fr, fi = _split_reim(f.reshape(1, shp[0], -1))
-    g = greens.astype(jnp.float32).reshape(1, greens.shape[0], -1)
-    rr, ii = fft_greens_ifft_pass(fr, fi, g, fast)
-    return jax.lax.complex(rr, ii).reshape(nz, *shp[1:])
-
-
-def _conv_z_local_batched(f, greens, nz: int, use_pallas: bool,
-                          fast: bool = False):
-    """``_conv_z_local`` over a LEADING component axis: the fused kernel's
-    (A, L, B) layout takes the components as the A blocks (one shared
-    greens copy across A - the kernel's grid iterates A innermost so the
-    greens block fetch amortizes over components, pallas_fft.py grid-order
-    note)."""
-    if not use_pallas:
-        from sopht_mpi_tpu.parallel.mxu_fft import fft_padded, ifft_truncated
-
-        return ifft_truncated(
-            fft_padded(f, 1, 2 * nz) * greens[None], 1, nz
-        )
-    from sopht_mpi_tpu.parallel.pallas_fft import fft_greens_ifft_pass
-
-    shp = f.shape
-    fr, fi = _split_reim(f.reshape(shp[0], shp[1], -1))
-    g = greens.astype(jnp.float32).reshape(1, greens.shape[0], -1)
-    rr, ii = fft_greens_ifft_pass(fr, fi, g, fast)
-    return jax.lax.complex(rr, ii).reshape(shp[0], nz, *shp[2:])
-
-
 def _a2a_c(f, name: str, split_axis: int, concat_axis: int,
            compact: bool = False):
     """``lax.all_to_all`` of a complex spectrum, optionally on a bf16
     WIRE format: re/im round to bf16 and BIT-PACK into one uint32 per
-    complex element - HALF the transpose bytes of complex64 (VERDICT r04
-    next #1c, opt-in via the solvers' ``comm_bf16``). The packing is
-    explicit integer bit math, so no backend pass can widen the wire
-    dtype back (a plain ``.astype(bf16)`` pair gets hoisted across the
-    collective by XLA's convert-fusion and ships f32 anyway - observed on
-    the CPU SPMD pipeline). The local math stays float32; only the wire
-    payload rounds (measured solve rel err ~1e-3 class - a pod-scale
-    bytes/accuracy trade, OFF by default; the fast_spectral tier's 3-pass
-    bf16 MATMULS keep ~6.6e-6 because they split hi/lo, which a wire
-    format cannot without giving the bytes back)."""
+    complex element - HALF the transpose bytes of complex64 (opt-in via
+    the solvers' ``comm_bf16``). The packing is explicit integer bit
+    math, so no backend pass can widen the wire dtype back (a plain
+    ``.astype(bf16)`` pair gets hoisted across the collective by XLA's
+    convert-fusion and ships f32 anyway - observed on the CPU SPMD
+    pipeline). The local math stays float32; only the wire payload rounds
+    (solve rel err ~1e-3 class, OFF by default)."""
     if not compact:
         return lax.all_to_all(
             f, name, split_axis=split_axis, concat_axis=concat_axis,
@@ -352,9 +274,8 @@ def _chunked(f, axis: int, g: int, stage, aux=()):
     independent dataflow chains, so XLA's latency-hiding scheduler can
     overlap chunk i's collective with chunk j's local compute - the manual
     analogue of overlapping the reference's MPI transposes with FFTW work
-    (its blocking Alltoallv cannot; see SCALING.md "overlap is the first
-    real-pod lever"). ``aux`` operands are split along the same axis and
-    passed as extra ``stage`` arguments. No-op at g = 1."""
+    (its blocking Alltoallv cannot). ``aux`` operands are split along the
+    same axis and passed as extra ``stage`` arguments. No-op at g = 1."""
     if g <= 1:
         return stage(f, *aux)
     parts = zip(
@@ -364,106 +285,56 @@ def _chunked(f, axis: int, g: int, stage, aux=()):
     return jnp.concatenate([stage(*p) for p in parts], axis=axis)
 
 
-def realized_overlap_chunks(nz: int, ny: int, fxp: int, pz: int, py: int,
-                            pallas_z: bool, chunks: int):
+def realized_overlap_chunks(nz: int, fxp: int, pz: int, py: int,
+                            chunks: int):
     """The chunk counts the three ``_convolve3_local`` segments actually
     realize for a ``chunks`` request (largest divisor of each segment's
-    bystander-axis extent <= the request, with the conv segment refusing
-    any chunking that would lose the fused Pallas kernel's tile budget).
-    Mirrors the logic in ``_convolve3_local`` so callers / benchmark
-    protocols can detect silent degradation (a degraded request lowers the
-    same HLO as a smaller one)."""
-    nzl = nz // pz
-    bxl = fxp // py
-    g1 = _pipeline_chunks(nzl, chunks) if py > 1 else 1
-    g2 = 1
-    if pz > 1 and chunks > 1:
-        g2 = _pipeline_chunks(bxl, chunks)
-        while g2 > 1 and pallas_z and not _pallas_mid_passes_ok(
-            2 * nz, (2 * ny // pz) * (bxl // g2), conv=True
-        ):
-            g2 = _pipeline_chunks(bxl, g2 - 1)
+    bystander-axis extent <= the request). Mirrors the logic in
+    ``_convolve3_local`` so callers / benchmark protocols can detect
+    silent degradation (a degraded request lowers the same HLO as a
+    smaller one)."""
+    g1 = _pipeline_chunks(nz // pz, chunks) if py > 1 else 1
+    g2 = _pipeline_chunks(fxp // py, chunks) if pz > 1 else 1
     return g1, g2, g1
 
 
 def _convolve3_local(field, greens, *, pz: int, py: int, nz: int, ny: int,
-                     nx: int, fxp: int, pallas_y: bool = False,
-                     pallas_z: bool = False, fast: bool = False,
-                     chunks: int = 1, comm_bf16: bool = False):
-    # Three pipelined segments, each chunked along an axis the segment's
-    # all_to_all does not touch so every chunk is a valid independent
-    # transpose + local pass. Segments are separated by real dataflow
-    # barriers (the chunk axis changes), so overlap is intra-segment.
-    nzl = field.shape[0]  # nz / pz
+                     nx: int, fxp: int, chunks: int = 1,
+                     comm_bf16: bool = False):
+    """Per-shard 3D doubled-domain convolution over a leading component
+    axis (c, nz/pz, ny/py, nx): the components FOLD into each segment's
+    batch rows, so every all_to_all moves all c components in ONE
+    collective launch (3x fewer launches than per-component solves, same
+    total bytes, deeper overlap windows for the latency-hiding scheduler).
 
-    def fwd_stage(c):
-        c = jnp.fft.rfft(c, n=2 * nx, axis=2)  # (.., ny/py, nx+1)
-        c = jnp.pad(c, ((0, 0), (0, 0), (0, fxp - c.shape[2])))
-        if py > 1:
-            c = _a2a_c(c, "y", 2, 1, comm_bf16)
-        return _fwd_y_local(c, 2 * ny, pallas_y)  # (.., 2ny, fxp/py)
-
-    # realized chunk counts (never trade the fused Pallas conv kernel
-    # away for overlap - see realized_overlap_chunks)
-    g1, g2, g3 = realized_overlap_chunks(nz, ny, fxp, pz, py, pallas_z, chunks)
-    f = _chunked(field, 0, g1, fwd_stage)
-
-    def conv_stage(c, g_c):
-        if pz > 1:
-            c = _a2a_c(c, "z", 1, 0, comm_bf16)
-        # fused z-forward * greens -> z-inverse on the shard: the doubled
-        # z-spectrum never hits shard HBM
-        c = _conv_z_local(c, g_c, nz, pallas_z, fast)  # (nz, 2ny/pz, ..)
-        if pz > 1:
-            c = _a2a_c(c, "z", 0, 1, comm_bf16)
-        return c
-
-    f = _chunked(f, 2, g2, conv_stage, aux=(greens,))
-
-    def inv_stage(c):
-        c = _inv_y_local(c, ny, pallas_y)  # (.., ny, fxp/py)
-        if py > 1:
-            c = _a2a_c(c, "y", 1, 2, comm_bf16)
-        c = c[:, :, : nx + 1]
-        out = jnp.fft.irfft(c, n=2 * nx, axis=2)
-        return jax.lax.slice_in_dim(out, 0, nx, axis=2)
-
-    return _chunked(f, 0, g3, inv_stage)
-
-
-def _convolve3_local_batched(field, greens, *, pz: int, py: int, nz: int,
-                             ny: int, nx: int, fxp: int,
-                             pallas_y: bool = False, pallas_z: bool = False,
-                             fast: bool = False, chunks: int = 1,
-                             comm_bf16: bool = False):
-    """``_convolve3_local`` over a leading component axis (c, nzl, nyl,
-    nx): the components FOLD into each segment's batch rows, so every
-    all_to_all moves all c components in ONE collective launch (3x fewer
-    launches than per-component solves, same total bytes, deeper overlap
-    windows for the latency-hiding scheduler - VERDICT r04 next #1b). The
-    y segments fold c into the z-row batch axis; the conv segment rides
-    the fused kernel's A dimension with one shared greens copy."""
+    Three pipelined segments, each chunked along an axis the segment's
+    all_to_all does not touch so every chunk is a valid independent
+    transpose + local pass. Segments are separated by real dataflow
+    barriers (the chunk axis changes), so overlap is intra-segment."""
     c = field.shape[0]
     nzl = field.shape[1]  # nz / pz
-    g1, g2, g3 = realized_overlap_chunks(nz, ny, fxp, pz, py, pallas_z, chunks)
+    g1, g2, g3 = realized_overlap_chunks(nz, fxp, pz, py, chunks)
 
     def fwd_stage(ch):
-        ch = jnp.fft.rfft(ch, n=2 * nx, axis=2)
+        ch = jnp.fft.rfft(ch, n=2 * nx, axis=2)  # (.., ny/py, nx+1)
         ch = jnp.pad(ch, ((0, 0), (0, 0), (0, fxp - ch.shape[2])))
         if py > 1:
             ch = _a2a_c(ch, "y", 2, 1, comm_bf16)
-        return _fwd_y_local(ch, 2 * ny, pallas_y)
+        return fft_padded(ch, 1, 2 * ny)  # (.., 2ny, fxp/py)
 
     # chunk along the folded (c * nzl) row axis in multiples of c rows so
     # chunk counts (and so the all-to-all count per segment) match the
-    # unbatched pipeline's realized g1/g3
+    # per-component pipeline's realized g1/g3
     f = _chunked(field.reshape(c * nzl, ny // py, nx), 0, g1, fwd_stage)
     bxl = f.shape[2]  # fxp / py
 
     def conv_stage(ch, g_c):
         if pz > 1:
             ch = _a2a_c(ch, "z", 2, 1, comm_bf16)
-        ch = _conv_z_local_batched(ch, g_c, nz, pallas_z, fast)
+        # z-forward * greens -> z-inverse on the shard
+        ch = ifft_truncated(
+            fft_padded(ch, 1, 2 * nz) * g_c[None], 1, nz
+        )  # (c, nz, 2ny/pz, ..)
         if pz > 1:
             ch = _a2a_c(ch, "z", 1, 2, comm_bf16)
         return ch
@@ -474,7 +345,7 @@ def _convolve3_local_batched(field, greens, *, pz: int, py: int, nz: int,
     )
 
     def inv_stage(ch):
-        ch = _inv_y_local(ch, ny, pallas_y)
+        ch = ifft_truncated(ch, 1, ny)  # (.., ny, fxp/py)
         if py > 1:
             ch = _a2a_c(ch, "y", 1, 2, comm_bf16)
         ch = ch[:, :, : nx + 1]
@@ -486,30 +357,21 @@ def _convolve3_local_batched(field, greens, *, pz: int, py: int, nz: int,
 
 
 #: default requested chunk count for the comm/compute software pipeline of
-#: the 3D distributed convolve (see ``_chunked``). 4 balances overlap depth
-#: against per-chunk collective launch overhead; 1 disables pipelining.
+#: the 3D distributed convolve (see ``_chunked``); 1 disables pipelining.
+#: The default is not yet measured against 1 on GPUs (ROADMAP R2).
 DEFAULT_OVERLAP_CHUNKS = 4
 
 
 def distributed_free_space_convolve(rhs, greens, mesh: Mesh,
-                                    force_pallas: bool | None = None,
-                                    fast: bool = False,
                                     overlap_chunks: int | None = None,
                                     comm_bf16: bool = False):
     """Spectral free-space convolution of a sharded N-domain ``rhs`` with a
     real doubled-domain Fourier multiplier ``greens`` (layout
     ``fourier_partition_spec``, i.e. the output of ``distributed_rfftn`` on
     the even-reflected doubled kernel). Returns the N-domain solution with
-    the input's sharding. The doubled field never materializes.
-
-    On TPU with float32, the per-shard y/z passes run the fused Pallas
-    kernels (the z greens pass as one fused kernel) when the shard shapes
-    admit valid tiles; elsewhere the MXU einsum four-step serves.
-    ``force_pallas`` overrides the auto policy (used by the interpret-mode
-    composition test). ``fast`` selects the 3-pass bf16 conv matmul tier
-    in the 3D per-shard z conv pass ONLY - the 2D distributed path has no
-    fused conv kernel (MXU einsum four-step), so the flag is a
-    documented no-op there.
+    the input's sharding. The doubled field never materializes. A 3D
+    ``rhs`` may carry a leading component axis, which folds into every
+    transpose payload.
 
     ``overlap_chunks`` software-pipelines each all_to_all transpose with
     the adjacent local pass by splitting the 3D pipeline into independent
@@ -517,16 +379,13 @@ def distributed_free_space_convolve(rhs, greens, mesh: Mesh,
     policy; 1 disables). It is a REQUEST: each segment realizes the
     largest divisor of its bystander-axis extent <= the request (the
     x-freq axis is only padded to guarantee divisibility by
-    ``DEFAULT_OVERLAP_CHUNKS`` when pz > 1, and the conv segment also
-    refuses any chunking that would lose the fused Pallas kernel's tile
-    budget) - benchmark protocols comparing chunk depths should check the
-    lowered all-to-all count, not assume the request. Chunking is exact
-    (the chunks partition the batch rows of each linear pass) and is a
-    no-op on mesh axes of size 1, so single-chip behavior is untouched.
-    The 2D path is transpose-light (slab grids a few hundred KB per
-    shard) and is not chunked."""
-    batched = rhs.ndim == 4  # (c, nz, ny, nx): fold components into the
-    # transpose payloads - 3x fewer collective launches (VERDICT r04 #1b)
+    ``DEFAULT_OVERLAP_CHUNKS`` when pz > 1) - benchmark protocols
+    comparing chunk depths should check the lowered all-to-all count, not
+    assume the request. Chunking is exact (the chunks partition the batch
+    rows of each linear pass) and is a no-op on mesh axes of size 1, so
+    single-device behavior is untouched. The 2D path is transpose-light
+    (slab grids a few hundred KB per shard) and is not chunked."""
+    batched = rhs.ndim == 4
     grid_dim = 3 if batched else rhs.ndim
     fxp = padded_rfft_size(2 * rhs.shape[-1], mesh, grid_dim)
     if grid_dim == 2:
@@ -538,15 +397,6 @@ def distributed_free_space_convolve(rhs, greens, mesh: Mesh,
     else:
         nz, ny, nx = rhs.shape[-3:]
         pz, py = mesh.shape["z"], mesh.shape["y"]
-        on_tpu = (
-            jax.default_backend() == "tpu" and rhs.dtype == jnp.float32
-            if force_pallas is None
-            else force_pallas
-        )
-        pallas_y = on_tpu and _pallas_mid_passes_ok(2 * ny, fxp // py)
-        pallas_z = on_tpu and _pallas_mid_passes_ok(
-            2 * nz, (2 * ny // pz) * (fxp // py), conv=True
-        )
         if overlap_chunks is not None and overlap_chunks < 1:
             raise ValueError(
                 f"overlap_chunks must be >= 1 (got {overlap_chunks}); "
@@ -559,10 +409,8 @@ def distributed_free_space_convolve(rhs, greens, mesh: Mesh,
         if overlap_chunks is not None and chunks > 1:
             # an explicit request that silently degrades lowers the same
             # HLO as a smaller one - warn so A/B protocols don't compare
-            # identical programs (ADVICE r04)
-            realized = realized_overlap_chunks(
-                nz, ny, fxp, pz, py, pallas_z, chunks
-            )
+            # identical programs
+            realized = realized_overlap_chunks(nz, fxp, pz, py, chunks)
             if any(g != chunks for g in realized):
                 warnings.warn(
                     f"overlap_chunks={chunks} realized as "
@@ -572,13 +420,12 @@ def distributed_free_space_convolve(rhs, greens, mesh: Mesh,
                     "extent <= the request",
                     stacklevel=2,
                 )
-        fn = functools.partial(
-            _convolve3_local_batched if batched else _convolve3_local,
-            pz=pz, py=py,
+        local = functools.partial(
+            _convolve3_local, pz=pz, py=py,
             nz=nz, ny=ny, nx=nx, fxp=fxp,
-            pallas_y=pallas_y, pallas_z=pallas_z, fast=fast,
             chunks=chunks, comm_bf16=comm_bf16,
         )
+        fn = local if batched else (lambda r, g: local(r[None], g)[0])
     spec = _grid_spec(grid_dim)
     if batched:
         spec = P(None, *spec)
@@ -587,8 +434,8 @@ def distributed_free_space_convolve(rhs, greens, mesh: Mesh,
         mesh=mesh,
         in_specs=(spec, fourier_partition_spec(grid_dim, mesh)),
         out_specs=spec,
-        # pallas_call inside the body cannot declare varying-mesh-axes
-        # metadata on its out_shape; the specs above pin the layouts
+        # the bf16 wire format's custom VJP cannot carry varying-mesh-axes
+        # metadata on its cotangents; the specs above pin the layouts
         check_vma=False,
     )(rhs, greens)
 

@@ -1,11 +1,11 @@
 """Device mesh construction and field shardings.
 
-TPU-native replacement for the reference's MPI cartesian-communicator layer
+JAX replacement for the reference's MPI cartesian-communicator layer
 (``MPIConstruct2D/3D``, /root/reference/sopht_mpi/utils/mpi_utils_2d.py:9-84,
 mpi_utils_3d.py:7-83). Instead of a cartesian process grid with derived
 datatypes and explicit halo messages, we build a ``jax.sharding.Mesh`` over
-TPU devices and assign ``NamedSharding`` s to globally-shaped field arrays;
-XLA's SPMD partitioner inserts the ICI communication.
+the devices and assign ``NamedSharding`` s to globally-shaped field arrays;
+XLA's SPMD partitioner inserts the communication.
 
 Conventions (mirroring the reference's field layout):
 - 2D scalar fields: shape ``(ny, nx)``; mesh axes ``("y", "x")``.

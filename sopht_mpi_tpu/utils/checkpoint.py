@@ -6,7 +6,7 @@ reference's MPIIO (same layout + XDMF sidecars,
 single-controller side — right for visualization, wrong for production
 checkpointing at pod scale. This module checkpoints the fused-loop carry
 (any ``models.fsi`` carry NamedTuple, or any pytree of arrays) the
-TPU-native way: orbax writes each shard from its device (no host gather of
+JAX way: orbax writes each shard from its device (no host gather of
 the global array), asynchronously, with atomic finalization, and restores
 with the ORIGINAL shardings reapplied.
 """

@@ -1,7 +1,7 @@
 """Field IO: HDF5 checkpoints + XDMF sidecars for ParaView.
 
 Counterpart of the reference's parallel-HDF5 ``MPIIO`` / ``CosseratRodMPIIO``
-(/root/reference/sopht_mpi/utils/mpi_io.py:8-792). The TPU framework is
+(/root/reference/sopht_mpi/utils/mpi_io.py:8-792). This framework is
 single-controller, so the collective mpio driver, per-rank hyperslabs and
 master-rank-only Lagrangian writes disappear; the on-disk layout is kept
 compatible (``Eulerian/Scalar|Vector/<name>``, ``Eulerian/Parameters``
@@ -119,7 +119,7 @@ class FieldIO:
         """Define the global Eulerian grid (z-y-x ordered arrays). The
         ``ghost_size`` argument is accepted for API parity and must be 0 -
         fields here are ghost-free."""
-        assert ghost_size == 0, "TPU fields are ghost-free"
+        assert ghost_size == 0, "fields are ghost-free"
         self.eulerian_origin = np.asarray(origin, dtype=np.float64)
         self.eulerian_dx = np.asarray(dx, dtype=np.float64)
         self.eulerian_grid_size = np.asarray(grid_size, dtype=np.int64)
@@ -246,7 +246,7 @@ class FieldIO:
     #
     # FieldIO.save gathers the global field to one host before writing -
     # fine on one chip, a serialization funnel for pod-scale dumps. The
-    # sharded mode is the TPU-native analogue of the reference's collective
+    # sharded mode is the JAX analogue of the reference's collective
     # hyperslab writes (every MPI rank streams its local block,
     # /root/reference/sopht_mpi/utils/mpi_io.py:291,310-336): every JAX
     # PROCESS writes one file containing only the shards it addresses,

@@ -1,4 +1,4 @@
-"""Logging for the single-controller TPU runtime.
+"""Logging for the single-controller JAX runtime.
 
 Counterpart of the reference's ``MPILogger`` / ``MPIFileHandler``
 (/root/reference/sopht_mpi/utils/mpi_logger.py): rank-filtered console
@@ -30,7 +30,7 @@ class FlowLogger:
                                 timestamp: bool = True):
         """Attach a logfile (reference mpi_logger.py:120-134)."""
         if filename is None:
-            filename = "sopht_tpu"
+            filename = "sopht"
         if timestamp:
             filename = f"{filename}_{datetime.now():%Y%m%d_%H%M%S}"
         handler = logging.FileHandler(f"{filename}.log")

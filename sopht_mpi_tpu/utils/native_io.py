@@ -1,6 +1,6 @@
 """Async field dumps through the native C++ writer (csrc/async_dump.cpp).
 
-High-frequency snapshot/checkpoint output must not block the TPU step loop
+High-frequency snapshot/checkpoint output must not block the device step loop
 on host filesystem latency - the reference's collective parallel-HDF5
 writes (/root/reference/sopht_mpi/utils/mpi_io.py:291) are synchronous by
 construction. :class:`AsyncFieldDumper` copies the host array once into the

@@ -3,7 +3,7 @@
 The reference wires its parallel-HDF5 IO into every example's time loop
 (/root/reference/examples/3d_examples/FlowPastSphereCase/
 flow_past_sphere_case.py:129-139, via mpi_io.py) — but those writes are
-synchronous. The fused TPU loops only touch the host at scan-window
+synchronous. The fused device loops only touch the host at scan-window
 boundaries, so snapshotting must not stall the device queue:
 :class:`SnapshotWriter` fetches each field once (a device->host copy that
 the window boundary already pays for diagnostics anyway) and hands the

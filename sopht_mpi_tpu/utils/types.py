@@ -1,6 +1,6 @@
 """Precision utilities.
 
-TPU-native counterpart of the reference's precision helpers
+JAX counterpart of the reference's precision helpers
 (``sopht.utils.precision.get_real_t / get_test_tol``, used throughout
 /root/reference/sopht_mpi and its tests). float32 is the default flow
 precision (reference: flow_simulators_mpi_2d.py:32); float64 is supported on

@@ -155,80 +155,3 @@ def test_2d_with_forcing_resets_forcing_field():
     np.testing.assert_array_equal(np.asarray(sim.eul_grid_forcing_field), 0.0)
 
 
-def test_3d_step_pallas_path_matches_jnp_path(monkeypatch):
-    """The full Navier-Stokes step on the production (Pallas) fork -
-    streaming stencils incl. the fused diffusion+penalise pass and the
-    Pallas FFT convolve - matches the jnp/einsum fork (float32, interpret
-    mode on CPU)."""
-    import sopht_mpi_tpu.ops.poisson as poisson_mod
-
-    def build(use_pallas):
-        sim = UnboundedFlowSimulator3D(
-            grid_size=(32, 32, 32),
-            x_range=1.0,
-            kinematic_viscosity=1e-3,
-            flow_type="navier_stokes_with_forcing",
-            with_free_stream_flow=True,
-            real_t=jnp.float32,
-            use_pallas=use_pallas,
-        )
-        rng = np.random.default_rng(3)
-        sim.primary_field = jnp.asarray(
-            0.1 * rng.standard_normal(sim.primary_field.shape), jnp.float32
-        )
-        sim.eul_grid_forcing_field = jnp.asarray(
-            rng.standard_normal(sim.eul_grid_forcing_field.shape), jnp.float32
-        )
-        for _ in range(2):
-            sim.time_step(1e-3, free_stream_velocity=(1.0, 0.0, 0.0))
-        return np.asarray(sim.primary_field), np.asarray(sim.velocity_field)
-
-    w_ref, u_ref = build(False)
-    monkeypatch.setattr(poisson_mod, "FORCE_PALLAS_CONVOLVE", True)
-    w_pal, u_pal = build(True)
-    scale = max(1.0, np.abs(w_ref).max())
-    np.testing.assert_allclose(w_pal, w_ref, atol=2e-4 * scale)
-    np.testing.assert_allclose(
-        u_pal, u_ref, atol=2e-4 * max(1.0, np.abs(u_ref).max())
-    )
-
-
-def test_3d_step_fused_spectral_curl_matches_jnp_path(monkeypatch):
-    """The opt-in per-solver fast mode (fast_spectral=True: curl mixed
-    inside the conv kernel, ring/free-stream/CFL epilogue inside the c2r
-    merge, 3-pass bf16 conv matmuls) matches the jnp fork through a full
-    Navier-Stokes step."""
-    import sopht_mpi_tpu.ops.poisson as poisson_mod
-
-    def build(use_pallas, fast=False):
-        sim = UnboundedFlowSimulator3D(
-            grid_size=(32, 32, 32),
-            x_range=1.0,
-            kinematic_viscosity=1e-3,
-            flow_type="navier_stokes_with_forcing",
-            with_free_stream_flow=True,
-            real_t=jnp.float32,
-            use_pallas=use_pallas,
-            fast_spectral=fast,
-        )
-        rng = np.random.default_rng(7)
-        sim.primary_field = jnp.asarray(
-            0.1 * rng.standard_normal(sim.primary_field.shape), jnp.float32
-        )
-        for _ in range(2):
-            sim.time_step(1e-3, free_stream_velocity=(1.0, 0.5, 0.0))
-        return np.asarray(sim.primary_field), np.asarray(sim.velocity_field)
-
-    w_ref, u_ref = build(False)
-    monkeypatch.setattr(poisson_mod, "FORCE_PALLAS_CONVOLVE", True)
-    # the fused path must actually engage, or this test silently collapses
-    # into a duplicate of the ordinary pallas-vs-jnp parity test
-    probe = poisson_mod.UnboundedPoissonSolver3D(32, 32, 32, x_range=1.0)
-    assert probe.fused_curl_supported(jnp.float32)
-    w_pal, u_pal = build(True, fast=True)
-    np.testing.assert_allclose(
-        w_pal, w_ref, atol=2e-4 * max(1.0, np.abs(w_ref).max())
-    )
-    np.testing.assert_allclose(
-        u_pal, u_ref, atol=2e-4 * max(1.0, np.abs(u_ref).max())
-    )

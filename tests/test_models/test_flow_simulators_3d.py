@@ -1,7 +1,7 @@
 
 
 def test_simulator_rejects_unknown_kwargs():
-    """ADVICE r04: a typo'd option (overlap_chunk=...) must raise instead
+    """A typo'd option (overlap_chunk=...) must raise instead
     of silently running the defaults - it would poison benchmark control
     arms."""
     import pytest
@@ -18,10 +18,10 @@ def test_simulator_rejects_unknown_kwargs():
             kinematic_viscosity=1e-3,
             overlap_chunk=1,
         )
-    with pytest.raises(TypeError, match="fast_spectrall"):
+    with pytest.raises(TypeError, match="penalty_zone_widht"):
         UnboundedFlowSimulator2D(
             grid_size=(8, 8),
             x_range=1.0,
             kinematic_viscosity=1e-3,
-            fast_spectrall=True,
+            penalty_zone_widht=2,
         )

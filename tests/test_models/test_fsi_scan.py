@@ -388,8 +388,7 @@ def test_rod_fsi_step_conflicting_substep_args_raise():
 def test_fsi_scan_is_reverse_differentiable():
     """jax.grad flows through the WHOLE coupled FSI scan (CFL dt control +
     IBM penalty interaction + NS flow step) on the XLA path - a capability
-    the MPI reference cannot offer. (The Pallas production path has its own
-    custom-VJP rules; see test_fsi_scan_pallas_path_is_differentiable.)"""
+    the MPI reference cannot offer."""
     flow_sim, interactor = _cylinder_case()
     step = build_rigid_fsi_step(flow_sim, interactor, dt_prefac=0.5)
     carry = init_rigid_fsi_carry(flow_sim, interactor, step)
@@ -403,81 +402,6 @@ def test_fsi_scan_is_reverse_differentiable():
             flow_state=carry.flow_state._replace(primary_scalar_field=omega0)
         )
         c2, _ = scan_steps(step, c, 2)
-        return jnp.sum(c2.flow_state.velocity_field ** 2)
-
-    g = jax.grad(loss)(om0)
-    assert bool(jnp.isfinite(g).all())
-    assert float(jnp.linalg.norm(g)) > 0.0
-
-
-@pytest.mark.parametrize("fast", [False, True])
-def test_fsi_scan_pallas_path_is_differentiable(monkeypatch, fast):
-    """jax.grad flows through the coupled FSI scan on the PRODUCTION
-    (Pallas) path: the Pallas FFT convolve and streaming stencil kernels
-    carry custom VJP rules (analytic adjoints / jnp-formulation
-    transposes), exercised here in interpret mode on CPU by forcing both
-    Pallas forks."""
-    import sopht_mpi_tpu.ops.poisson as poisson_mod
-    from sopht_mpi_tpu.models import (
-        RigidBodyFlowInteraction,
-        Sphere,
-        SphereForcingGrid,
-        UnboundedFlowSimulator3D,
-    )
-
-    monkeypatch.setattr(poisson_mod, "FORCE_PALLAS_CONVOLVE", True)
-    # fast = the BENCH_FAST configuration: 3-pass matmuls + in-kernel curl
-    # (their custom VJPs ride the jnp formulations; grads must flow),
-    # now per-solver state threaded from the simulator kwarg
-    flow_sim = UnboundedFlowSimulator3D(
-        grid_size=(32, 32, 32),
-        x_range=1.0,
-        kinematic_viscosity=1e-3,
-        flow_type="navier_stokes_with_forcing",
-        with_free_stream_flow=True,
-        real_t=jnp.float32,
-        use_pallas=True,
-        fast_spectral=fast,
-    )
-    if fast:
-        assert flow_sim.unbounded_poisson_solver.fused_curl_supported(
-            jnp.float32
-        )
-    # the forced path must actually be the Pallas one: split greens pair
-    assert isinstance(
-        flow_sim.unbounded_poisson_solver.fourier_greens_times_dx_pow_dim,
-        tuple,
-    )
-    sphere = Sphere(
-        center=np.array([0.5, 0.5, 0.5]), radius=0.15, dtype=jnp.float32
-    )
-    grid = SphereForcingGrid(
-        rigid_body=sphere, num_forcing_points_along_equator=8
-    )
-    interactor = RigidBodyFlowInteraction(
-        flow_sim=flow_sim,
-        rigid_body=sphere,
-        forcing_grid=grid,
-        virtual_boundary_stiffness_coeff=-1e3,
-        virtual_boundary_damping_coeff=-1e0,
-    )
-    step = build_rigid_fsi_step(
-        flow_sim,
-        interactor,
-        dt_prefac=0.5,
-        free_stream_fn=lambda t: jnp.asarray([1.0, 0.0, 0.0], jnp.float32),
-    )
-    carry = init_rigid_fsi_carry(flow_sim, interactor, step)
-    rng = np.random.default_rng(0)
-    om0 = carry.flow_state.primary_field + 0.1 * jnp.asarray(
-        rng.standard_normal(carry.flow_state.primary_field.shape), jnp.float32
-    )
-
-    def loss(omega0):
-        c = carry._replace(
-            flow_state=carry.flow_state._replace(primary_field=omega0)
-        )
-        c2, _ = scan_steps(step, c, 1)
         return jnp.sum(c2.flow_state.velocity_field ** 2)
 
     g = jax.grad(loss)(om0)

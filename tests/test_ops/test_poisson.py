@@ -141,31 +141,28 @@ def test_poisson_sharded_matches_single_asymmetric_grid(mesh_shape):
     np.testing.assert_allclose(out_multi, out_single, atol=1e-12)
 
 
-def test_vector_solve_component_map_matches_batched(monkeypatch):
-    """The sequential-component path used at 512^3-class sizes (HBM
-    pressure) equals the batched pipeline (interpret-mode kernels)."""
-    import sopht_mpi_tpu.ops.poisson as pois
-
-    n = 32
-    rng = np.random.default_rng(12)
-    rhs = jnp.asarray(rng.standard_normal((3, n, n, n)), jnp.float32)
-    solver = UnboundedPoissonSolver3D(n, n, n, real_t=jnp.float32)
-    monkeypatch.setattr(pois, "_pallas_convolve_supported",
-                        lambda doubled, dtype: True)
-    greens = pois.split_pallas_greens(solver._dense_greens())
-    batched = np.asarray(solver.vector_field_solve(rhs, greens))
-    monkeypatch.setattr(pois, "_COMPONENT_MAP_THRESHOLD", 1)
-    mapped = np.asarray(solver.vector_field_solve(rhs, greens))
-    np.testing.assert_allclose(mapped, batched, atol=1e-6)
-    # both seqz variants: fully sequential (default) and pair-batched
-    monkeypatch.setattr(pois, "PAIR_BATCH_SEQZ", not pois.PAIR_BATCH_SEQZ)
-    flipped = np.asarray(solver.vector_field_solve(rhs, greens))
-    np.testing.assert_allclose(flipped, batched, atol=1e-6)
+@pytest.mark.parametrize("mesh_shape", [(8, 1), (4, 2)])
+def test_sharded_device_greens_build_matches_host_build(mesh_shape):
+    """The mesh solver's on-device Green's function (the large-grid
+    default) lands sharded and matches the float64 host build."""
+    nz, ny, nx = 8, 16, 16
+    mesh = create_mesh(3, mesh_shape)
+    host = UnboundedPoissonSolver3D(nz, ny, nx, mesh=mesh,
+                                    build_greens_on_device=False)
+    dev = UnboundedPoissonSolver3D(nz, ny, nx, mesh=mesh,
+                                   build_greens_on_device=True)
+    g_host = np.asarray(host.fourier_greens_times_dx_pow_dim)
+    g_dev = dev.fourier_greens_times_dx_pow_dim
+    assert g_dev.sharding.is_equivalent_to(
+        host.fourier_greens_times_dx_pow_dim.sharding, g_dev.ndim
+    )
+    np.testing.assert_allclose(np.asarray(g_dev), g_host, rtol=1e-6,
+                               atol=1e-6 * np.abs(g_host).max())
 
 
 def test_solver_overlap_chunks_param_is_exact_and_threads():
     """The solver/simulator `overlap_chunks` constructor parameter (the
-    control arm of SCALING.md's overlap measurement protocol) reaches the
+    unpipelined control arm of an overlap measurement) reaches the
     distributed convolve and the unpipelined form is bit-equal to the
     chunked default."""
     n = 16

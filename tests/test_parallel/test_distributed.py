@@ -64,25 +64,6 @@ def test_auto_mesh_shards_and_computes():
     assert float(jnp.sum(f)) == 16**3
 
 
-def test_use_pallas_accepts_mesh():
-    """Round 4 lifted the use_pallas x mesh exclusion: a sharded
-    simulator with use_pallas=True builds and routes the hot stencils to
-    the per-shard shard_map kernels (ops/pallas_stencils_sharded.py;
-    step-level parity is covered by
-    test_ops/test_pallas_stencils_sharded.py)."""
-    from sopht_mpi_tpu.models import UnboundedFlowSimulator3D
-    from sopht_mpi_tpu.parallel import create_mesh
-
-    sim = UnboundedFlowSimulator3D(
-        grid_size=(16, 16, 16),
-        x_range=1.0,
-        kinematic_viscosity=1e-3,
-        mesh=create_mesh(3, (4, 2)),
-        use_pallas=True,
-    )
-    assert sim.use_pallas is True and sim.mesh is not None
-
-
 def test_sharded_convolve_lowers_to_all_to_all():
     """Regression guard on the compiled collective structure: the
     distributed free-space convolve must lower to all-to-all pencil

@@ -107,50 +107,9 @@ def test_sharded_matches_single_device():
     )
 
 
-def test_distributed_convolve_pallas_shard_path_matches_einsum():
-    """The per-shard Pallas pass composition inside shard_map (the real-TPU
-    production path) equals the einsum path, in interpret mode on the
-    virtual CPU mesh."""
-    from sopht_mpi_tpu.parallel.fft import (
-        distributed_free_space_convolve,
-        distributed_rfftn,
-    )
-    from sopht_mpi_tpu.parallel.mesh import create_mesh, shard_scalar_field
-
-    nz = ny = nx = 32
-    rng = np.random.default_rng(11)
-    rhs = jnp.asarray(rng.standard_normal((nz, ny, nx)), jnp.float32)
-    kernel = jnp.asarray(
-        rng.standard_normal((2 * nz, 2 * ny, 2 * nx)), jnp.float32
-    )
-    for mesh_shape in [(4, 2)]:  # pencil covers both all_to_all paths
-        mesh = create_mesh(3, mesh_shape)
-        g = distributed_rfftn(shard_scalar_field(kernel, mesh), mesh)
-        g = jnp.real(g)
-        r = shard_scalar_field(rhs, mesh)
-        ref = distributed_free_space_convolve(r, g, mesh, force_pallas=False)
-        out = distributed_free_space_convolve(r, g, mesh, force_pallas=True)
-        np.testing.assert_allclose(
-            np.asarray(out), np.asarray(ref),
-            atol=5e-5 * float(jnp.abs(ref).max()),
-        )
-        # the solver's fast_spectral tier threads through to the per-shard
-        # conv pass (round 4: pods get the same conv matmul tier as the
-        # single-chip path); 3-pass bf16 hi/lo stays ~1e-5-class here
-        fast = distributed_free_space_convolve(
-            r, g, mesh, force_pallas=True, fast=True
-        )
-        np.testing.assert_allclose(
-            np.asarray(fast), np.asarray(ref),
-            atol=5e-4 * float(jnp.abs(ref).max()),
-        )
-        assert float(jnp.abs(fast - out).max()) > 0.0  # distinct tiers ran
-
-
 def test_distributed_convolve_overlap_chunks_exact_and_pipelined():
-    """The chunked comm/compute software pipeline (round 4:
-    ``overlap_chunks``, SCALING.md's "overlap is the first real-pod
-    lever") is EXACT - every chunk partitions the batch rows of linear
+    """The chunked comm/compute software pipeline (``overlap_chunks``)
+    is EXACT - every chunk partitions the batch rows of linear
     passes - and its lowering multiplies the all-to-all transposes (the
     independent chains XLA's latency-hiding scheduler overlaps). The
     reference's blocking MPI Alltoallv transposes cannot overlap at all
@@ -269,7 +228,7 @@ def test_overlap_chunks_validation_and_degradation_warning():
         distributed_free_space_convolve(r, g, mesh, overlap_chunks=0)
     # nzl = nz/pz = 4: a request of 3 realizes its largest divisor 2 on
     # the fwd/inv segments -> must warn
-    assert realized_overlap_chunks(16, 16, g.shape[-1], 4, 2, False, 3)[0] == 2
+    assert realized_overlap_chunks(16, g.shape[-1], 4, 2, 3)[0] == 2
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         distributed_free_space_convolve(r, g, mesh, overlap_chunks=3)
